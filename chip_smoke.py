@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs a CUDA device and the CUDA toolkit (``nvcc``); without a device it
+exits with code 2 and prints no result.
+
+Phases (each prints one line with its seconds; any failure raises):
+  1. device, ``nvidia-smi`` name and power limit, and the build of the
+     port's CUDA kernel from its source (``nvcc``, sm_90a);
+  2. each kernel against its plain PyTorch version on the card, at the
+     flagship TTA batch (8, 1024, 1024), a ragged (3, 469, 753) and a 2-row
+     edge case, in both epilogues and both mask modes; times of the kernel,
+     the plain version and the bound;
+  3. CNN maps of one synthetic 958x926 scene (numpy, ``--seed``) at full
+     width: the flagship's two PosNets (8-way TTA, max-combined) and its
+     ShapeNet; the kernel must launch 16 times. Weights: see
+     ``CHECKPOINTED_MODEL``;
+  4. the exact whole-scene chain at the 1024 bucket with K = 1024 for
+     ``--max-segments`` segments of 341 supersteps: ms per superstep, the
+     projected full-budget seconds, a finite energy, and the carried cache
+     and energy against a rebuild;
+  5. papangelou scores (finite, positive) and the detection count after the
+     distance NMS.
+Then one JSON line per kernel table, the card's name and power limit, and
+the result line ``{"ok": true, "device": {...}}`` last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+MPP_CONFIG = "mpp_log_r12ttapar"
+# the synthetic scene: the flagship's shape (pads to the 1024 bucket and
+# exercises the crop) and a DOTA-like vehicle count
+HEIGHT, WIDTH, OBJECTS = 958, 926, 150
+# The exported tree carries the trained weights of one flagship U-Net (each
+# flagship checkpoint is 23 MB, and the export is kept small): this one
+# loads from its checkpoint through the port's msgpack reader, and a missing
+# file raises. The flagship's other two U-Nets run at full width with
+# weights drawn from --seed in every run, whether or not their checkpoints
+# are on disk, so every run of this script measures the same workload.
+# scripts/torch_profile_chain.py runs the flagship with all three
+# checkpoints.
+CHECKPOINTED_MODEL = "pos_r2cp_tta"
+# kernel vs plain: fp32 stencil arithmetic in another association order
+RTOL, ATOL = 1e-5, 1e-5
+# carried chain cache vs a rebuild: the same fp32 formulas, rows computed
+# against different slot subsets
+CACHE_TOL = 1e-4
+H100_BYTES_PER_S = 3.35e12
+
+
+def phase(name, t0):
+    print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def cuda_time_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stencil_bound_ms(n_pixels: int) -> float:
+    """16 B/pixel (two vector components and the mask read, the output
+    written) over the memory rate; ~20 flop/pixel is far below the fp32
+    rate, so bytes bound it."""
+    return 16.0 * n_pixels / H100_BYTES_PER_S * 1e3
+
+
+def kernel_vs_plain(device, seed: int):
+    """Phase 2: returns the worst absolute error seen."""
+    import numpy as np
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
+
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for shape in [(8, 1024, 1024), (3, 469, 753), (1, 2, 517)]:
+        vec = torch.from_numpy(rng.normal(size=shape + (2,)).astype(
+            np.float32)).to(device)
+        logit = torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+        for epilogue in ("detection", "div_clf"):
+            for mask_is_logit in (True, False):
+                mask = logit if mask_is_logit else torch.sigmoid(logit)
+                kw = dict(mask_is_logit=mask_is_logit, epilogue=epilogue,
+                          clf_w=-3.0, clf_b=0.5)
+                got = dk.detection_map(vec, mask, **kw)
+                want = dk.detection_map_plain(vec, mask, **kw)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                max_abs = float(err.max())
+                max_rel = float((err / want.abs().clamp(min=1e-6)).max())
+                ok = bool((err <= ATOL + RTOL * want.abs()).all())
+                print(f"  kernel {epilogue:9s} logit={int(mask_is_logit)} "
+                      f"{shape}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+                      f"tol=atol {ATOL} + rtol {RTOL}", flush=True)
+                if not ok:
+                    raise AssertionError(
+                        f"detection_map kernel disagrees with its plain "
+                        f"version at {shape} {epilogue} logit={mask_is_logit}")
+                worst = max(worst, max_abs)
+        n = int(np.prod(shape))
+        k_ms = cuda_time_ms(lambda: dk.detection_map(vec, logit))
+        p_ms = cuda_time_ms(lambda: dk.detection_map_plain(vec, logit))
+        print(f"  time {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {stencil_bound_ms(n):.4f} ms (bytes)", flush=True)
+    return worst
+
+
+def main_path_kernel_times(device, h: int, w: int, seed: int):
+    """Kernel / plain times at the shape the main path launches it with:
+    one (h, w) TTA variant, DivClassifier epilogue, probability mask."""
+    import numpy as np
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
+
+    rng = np.random.default_rng(seed + 1)
+    vec = torch.from_numpy(rng.normal(size=(h, w, 2)).astype(
+        np.float32)).to(device)
+    mask = torch.from_numpy(rng.uniform(size=(h, w)).astype(
+        np.float32)).to(device)
+    kw = dict(mask_is_logit=False, epilogue="div_clf", clf_w=-3.0, clf_b=0.5)
+    k_ms = cuda_time_ms(lambda: dk.detection_map(vec, mask, **kw), reps=50)
+    p_ms = cuda_time_ms(lambda: dk.detection_map_plain(vec, mask, **kw),
+                        reps=50)
+    return k_ms, p_ms, stencil_bound_ms(h * w)
+
+
+def seeded_weights_(module, generator) -> None:
+    """Fill every parameter of ``module`` from ``generator``: He-scaled
+    normal conv kernels, other weights ``1 + 0.1 z``, biases ``0.1 z``;
+    BatchNorm keeps identity statistics."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            z = torch.randn(p.shape, generator=generator, dtype=torch.float32)
+            if p.ndim == 4:
+                p.copy_(z * (2.0 / (p.shape[1] * p.shape[2] * p.shape[3]))
+                        ** 0.5)
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * z)
+            else:
+                p.copy_(0.1 * z)
+
+
+def load_models(config, device, seed: int):
+    """The flagship's PosNets and ShapeNet (see ``CHECKPOINTED_MODEL``)."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
+        PosNetModel,
+    )
+    from mpp_cnn_rs_object_detection_torch.models.shapenet_model import (
+        ShapeNetModel,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import MODELS_ROOT
+
+    gen = torch.Generator().manual_seed(seed)
+    names = config["dataset"]["position_model"]
+    wanted = [(PosNetModel, "posnet", n) for n in names]
+    wanted.append((ShapeNetModel, "shapenet", config["dataset"]["shape_model"]))
+    models = []
+    for cls, kind, name in wanted:
+        model_dir = os.path.join(MODELS_ROOT, kind, name)
+        if name == CHECKPOINTED_MODEL:
+            model = cls.from_model_dir(model_dir, device)
+            source = "trained checkpoint via the msgpack reader"
+        else:
+            with open(os.path.join(model_dir, "config.json")) as f:
+                model = cls(json.load(f), device=device)
+            for module in (model.net, getattr(model, "div_clf", None)):
+                if module is not None:
+                    seeded_weights_(module, gen)
+            source = f"weights drawn from seed {seed}"
+        print(f"  {kind} {name}: hidden_dims "
+              f"{model.config['model']['hidden_dims']}, {source}", flush=True)
+        models.append(model)
+    if CHECKPOINTED_MODEL not in names:
+        raise AssertionError(f"{MPP_CONFIG} no longer uses "
+                             f"{CHECKPOINTED_MODEL}")
+    return models[:-1], models[-1]
+
+
+def unet_reference_check(pos_model, device):
+    """The U-Net on the card against the CPU on a small input, in fp32."""
+    import numpy as np
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.models.unet import PosNet
+
+    net = PosNet(pos_model.config["model"]["hidden_dims"]).eval()
+    net.load_state_dict(pos_model.net.state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(1, 3, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(device)(x.to(device)).cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"  U-Net fp32 card vs CPU on 64x64: max_abs={err:.3e} "
+          f"(max |out| {scale:.3f})", flush=True)
+    if err > 1e-3 * max(1.0, scale):
+        raise AssertionError("U-Net on the card disagrees with the CPU")
+
+
+def run(args, device: str = "cuda:0") -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        from mpp_cnn_rs_object_detection_torch import device as device_mod
+        from mpp_cnn_rs_object_detection_torch import native
+        from mpp_cnn_rs_object_detection_torch.data.synth import (
+            synthetic_scene,
+        )
+        from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
+        from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+            build_cache,
+            energy_from_cache,
+        )
+        from mpp_cnn_rs_object_detection_torch.mpp.scene import (
+            scene_shape_bucket,
+        )
+        from mpp_cnn_rs_object_detection_torch.ops import (
+            detection_kernel as dk,
+        )
+    except ImportError as e:
+        print(f"chip_smoke: run it from the repository root ({e})",
+              file=sys.stderr)
+        return 2
+
+    device = torch.device(device)
+    t_all = time.perf_counter()
+
+    # ---- 1. device and build
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = device_mod.nvidia_smi_line()
+    print(f"  device {torch.cuda.get_device_name(0)} x"
+          f"{torch.cuda.device_count()}; nvidia-smi: {smi}; torch "
+          f"{torch.__version__} cuda {torch.version.cuda}; cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    tb = time.perf_counter()
+    _, lib_path = native.load(dk.KERNEL.name)
+    log_path = lib_path + ".log"
+    with open(log_path) as f:
+        ptxas = " | ".join(ln.strip() for ln in f
+                           if "registers" in ln or "smem" in ln)
+    print(f"  built {dk.KERNEL.name} in {time.perf_counter() - tb:.2f} s; "
+          f"ptxas: {ptxas}", flush=True)
+    phase("1 device + build", t0)
+
+    # ---- 2. kernel vs plain
+    t0 = time.perf_counter()
+    max_abs_err = kernel_vs_plain(device, args.seed)
+    phase("2 kernel vs plain", t0)
+
+    # ---- 3..5: the main path, counts from 0
+    config = mpp_model.load_mpp_config(MPP_CONFIG)
+    pos_models, shape_model = load_models(config, device, args.seed)
+    unet_reference_check(pos_models[0], device)
+    mpp_dir = os.path.join(mpp_model.MODELS_ROOT, "mpp", config["model_name"])
+    setup, comb = mpp_model.load_energy_model(config, mpp_dir, device)
+    inference = mpp_model.SceneInference(config, pos_models, shape_model,
+                                         setup, comb, device)
+    image, gt_centers, _ = synthetic_scene(HEIGHT, WIDTH, OBJECTS,
+                                           seed=args.seed)
+
+    dk.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    data = inference.cnn_maps(image, name="synthetic")
+    torch.cuda.synchronize()
+    launches_cnn = dk.KERNEL.launches
+    det = data.detection_map
+    assert tuple(det.shape) == (HEIGHT, WIDTH), det.shape
+    assert bool(torch.isfinite(det).all()) and float(det.min()) >= 0.0 \
+        and float(det.max()) <= 1.0
+    for d in data.param_dist_maps:
+        assert tuple(d.shape) == (HEIGHT, WIDTH, 32), d.shape
+        assert float((d.sum(-1) - 1).abs().max()) < 1e-3
+    print(f"  maps: detection max {float(det.max()):.4f} mean "
+          f"{float(det.mean()):.4f}; {launches_cnn} kernel launches "
+          f"({len(pos_models)} PosNets x 8 TTA)", flush=True)
+    if launches_cnn != 8 * len(pos_models):
+        raise AssertionError(f"expected {8 * len(pos_models)} detection-map "
+                             f"kernel launches, counted {launches_cnn}")
+    phase("3 CNN maps", t0)
+
+    t0 = time.perf_counter()
+    result = inference.run_scenes([data], [args.seed],
+                                  max_segments=args.max_segments)[0]
+    chain = result.chain
+    energy = float(chain.energy)
+    ms_super = 1e3 * result.seconds["chain"] / max(result.supersteps, 1)
+    print(f"  chain: bucket {tuple(chain.maps.position.shape)}, K="
+          f"{result.capacity}, {result.supersteps} of "
+          f"{result.planned_supersteps} supersteps, {ms_super:.3f} "
+          f"ms/superstep, projected full budget "
+          f"{ms_super * result.planned_supersteps / 1e3:.1f} s; prep "
+          f"{result.seconds['prep']:.2f} s; energy {energy:.4f}; "
+          f"n_points {int(chain.state.n_points)}", flush=True)
+    bucket = scene_shape_bucket(HEIGHT, WIDTH)
+    assert tuple(chain.maps.position.shape) == bucket, bucket
+    assert np.isfinite(energy)
+    fresh = build_cache(chain.state, chain.maps, setup.spec)
+    alive = chain.state.alive
+    pair = alive[:, None] & alive[None, :]
+    for f in ("dist", "overlap", "align"):
+        a, b = getattr(chain.cache, f)[pair], getattr(fresh, f)[pair]
+        diff = float((a - b).abs().max()) if a.numel() else 0.0
+        if diff > CACHE_TOL * max(1.0, float(b.abs().max()) if b.numel()
+                                  else 1.0):
+            raise AssertionError(f"carried cache {f} off by {diff}")
+    u_fresh = float(energy_from_cache(chain.state, chain.maps, setup.spec,
+                                      comb, fresh))
+    print(f"  carried energy {energy:.4f} vs rebuilt {u_fresh:.4f}",
+          flush=True)
+    if abs(u_fresh - energy) > 1e-3 * max(1.0, abs(u_fresh)):
+        raise AssertionError("carried energy disagrees with a rebuild")
+    phase("4 chain", t0)
+
+    t0 = time.perf_counter()
+    final = mpp_model.final_detections(result)
+    scores = result.scores
+    assert np.isfinite(scores).all() and (scores > 0).all()
+    print(f"  scores: {len(scores)} detections (papangelou min "
+          f"{scores.min() if len(scores) else 0:.4f} max "
+          f"{scores.max() if len(scores) else 0:.4f}); {len(final['scores'])}"
+          f" after NMS; {len(gt_centers)} objects painted", flush=True)
+    phase("5 scores", t0)
+    launches = dk.KERNEL.launches
+    if launches == 0:
+        raise AssertionError("the main path launched no detection-map kernel")
+
+    k_ms, p_ms, bound = main_path_kernel_times(device, HEIGHT, WIDTH,
+                                               args.seed)
+    kernels = [{
+        "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
+        "replaces": dk.KERNEL.replaces, "launches": launches,
+        "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+    }]
+    print(f"[phase] total: {time.perf_counter() - t_all:.3f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-segments", type=int, default=1,
+                    help="annealing segments of the chain (341 supersteps "
+                         "each at the flagship budget)")
+    return run(ap.parse_args())
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,297 @@
+"""Exact whole-scene MPP inference on one device.
+
+Counterpart of the exact-scene part of
+``mpp_cnn_rs_object_detection_tpu/mpp/scene.py``: pad the maps to the scene
+shape bucket, initialise from the thresholded detection map, run ONE global
+cell-parallel chain in annealing segments over the full maps, then score
+every detection with its papangelou intensity. The superstep budget math is
+the JAX package's, verbatim. Checkpoint/resume, restarts, stopping
+conditions, polish and the mesh are not ported; the batched entry point
+loops the per-scene one at the batch's shared bucket and capacity.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mpp_cnn_rs_object_detection_torch.device import resolve_device
+from mpp_cnn_rs_object_detection_torch.mpp.combinators import EnergyCombiner
+from mpp_cnn_rs_object_detection_torch.mpp.energies import (
+    EnergyMaps,
+    stack_param_dists,
+)
+from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import EnergySetup
+from mpp_cnn_rs_object_detection_torch.mpp.image_data import ImageWMaps
+from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import CELL
+from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+    EnergyCache,
+    RJMCMCParams,
+    papangelou,
+)
+from mpp_cnn_rs_object_detection_torch.mpp.state import (
+    PointsState,
+    state_from_arrays,
+    state_to_arrays,
+)
+from mpp_cnn_rs_object_detection_torch.ops.nms import nms_distance
+from mpp_cnn_rs_object_detection_torch.parallel.sharded_scene import (
+    run_exact_scene_chain,
+)
+
+
+def naive_detection(data: ImageWMaps, detection_threshold: float
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Threshold + distance NMS (6 px) + bin-center argmax marks."""
+    det = np.asarray(torch.as_tensor(data.detection_map).cpu())
+    centers = np.array(np.where(det >= detection_threshold)).T
+    if len(centers) == 0:
+        return np.zeros((0, 2), np.float32), np.zeros((0, 3), np.float32)
+    scores = det[centers[:, 0], centers[:, 1]]
+    nms_centers, _ = nms_distance(centers, scores, threshold=6)
+    nms_centers = np.asarray(nms_centers).reshape(-1, 2).astype(int)
+    cy, cx = nms_centers[:, 0], nms_centers[:, 1]
+    cols = []
+    for i, m in enumerate(data.mappings):
+        d = data.param_dist_maps[i]
+        if isinstance(d, torch.Tensor):
+            arg = torch.argmax(d[torch.as_tensor(cy, device=d.device),
+                                 torch.as_tensor(cx, device=d.device)],
+                               dim=-1).cpu().numpy()
+        else:
+            arg = np.argmax(np.asarray(d)[cy, cx], axis=-1)
+        cols.append(m.class_to_center_value(arg))
+    marks = np.stack(cols, axis=-1).reshape(-1, 3)
+    return nms_centers.astype(np.float32), marks.astype(np.float32)
+
+
+def _pad(x, ph: int, pw: int):
+    """Bottom/right zero pad of the two leading axes (numpy or torch)."""
+    if isinstance(x, torch.Tensor):
+        pad = [0, 0] * (x.ndim - 2) + [0, pw, 0, ph]
+        return F.pad(x, pad)
+    x = np.asarray(x)
+    return np.pad(x, [(0, ph), (0, pw)] + [(0, 0)] * (x.ndim - 2))
+
+
+def scene_shape_bucket(h0: int, w0: int, n_dev: int = 1):
+    """(target_h, target_w) map padding: 2*CELL quanta for small scenes,
+    square power-of-two-times-256 sides for real ones (e.g. 469x753,
+    926x958 and 915x925 all land on 1024x1024)."""
+    quantum = 2 * CELL if (h0 <= 256 and w0 <= 256) else 256
+    mult = int(np.lcm(quantum, max(n_dev, 1)))
+    target_h = -(-max(h0, 2 * CELL * n_dev) // mult) * mult
+    target_w = -(-max(w0, 2 * CELL) // quantum) * quantum
+    if quantum == 256:
+        side = max(target_h, target_w)
+        pow2 = 256
+        while pow2 < side:
+            pow2 *= 2
+        side = -(-pow2 // mult) * mult
+        target_h = target_w = side
+    return target_h, target_w
+
+
+@dataclass
+class SuperstepBudget:
+    """The superstep schedule of an exact scene (JAX ``run_exact_scene``'s
+    budget math): ``total_super`` supersteps in segments of ``seg_super``,
+    annealing by ``alpha_super`` per superstep."""
+
+    mps: int          # expected proposals per superstep
+    ms_tile: int      # proposals a 256 px tile area gets per superstep
+    total_super: int
+    seg_super: int
+    alpha_super: float
+    t_target: float
+
+
+def superstep_budget(h: int, w: int, params: RJMCMCParams,
+                     segment_size: int = 4096) -> SuperstepBudget:
+    n_cells = max(h, w) // (2 * CELL) + 1
+    mps = max(1, n_cells * n_cells // 2)
+    # the per-256px-tile move budget, normalised by the proposals a tile
+    # area receives per superstep
+    ms_tile = max(1, (256 // (2 * CELL) + 1) ** 2 // 2)
+    total_super = max(1, params.total_steps // ms_tile)
+    alpha_super = float(np.power(params.resolved_alpha(), ms_tile))
+    seg_super = max(1, segment_size // ms_tile)
+    # round up to whole segments
+    total_super = -(-total_super // seg_super) * seg_super
+    return SuperstepBudget(mps=mps, ms_tile=ms_tile, total_super=total_super,
+                           seg_super=seg_super, alpha_super=alpha_super,
+                           t_target=params.resolved_t_target())
+
+
+@dataclass
+class ChainOutcome:
+    """The chain's final device state, kept for checks and diagnostics."""
+
+    state: PointsState
+    cache: EnergyCache
+    energy: torch.Tensor
+    maps: EnergyMaps
+
+
+@dataclass
+class SceneResult:
+    centers: np.ndarray  # (N, 2)
+    marks: np.ndarray    # (N, 3) size/ratio/angle
+    scores: np.ndarray   # (N,) papangelou
+    total_moves: int = 0
+    supersteps: int = 0          # supersteps run
+    planned_supersteps: int = 0  # the full budget
+    capacity: int = 0
+    seconds: Dict[str, float] = field(default_factory=dict)
+    chain: Optional[ChainOutcome] = None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _prepare(data: ImageWMaps, setup: EnergySetup, target_hw, init: str,
+             device: torch.device):
+    """Pad to the bucket, move the maps to ``device`` once, and draw the
+    initial configuration. Returns (data, c0, m0, original (h, w))."""
+    h0, w0 = data.shape
+    ph, pw = max(0, target_hw[0] - h0), max(0, target_hw[1] - w0)
+    # the mark maps are the heavy part: one transfer, padded on the device
+    data.param_dist_maps = stack_param_dists(data.param_dist_maps, (ph, pw),
+                                             device=device)
+    data.detection_map = _pad(torch.as_tensor(
+        data.detection_map, dtype=torch.float32, device=device), ph, pw)
+    data.image = _pad(data.image, ph, pw)
+    data.shape = (h0 + ph, w0 + pw)
+    if init == "naive":
+        c0, m0 = naive_detection(data, setup.detection_threshold)
+    elif init == "gt":
+        c0, m0 = data.gt_centers, data.gt_marks
+    else:
+        c0 = np.zeros((0, 2), np.float32)
+        m0 = np.zeros((0, 3), np.float32)
+    return data, c0, m0, (h0, w0)
+
+
+def _capacity(h: int, w: int, capacity: int, n_init: int) -> int:
+    """Slots scale with the padded area (64 per 256 px tile), with headroom
+    over the initial configuration, in multiples of 64."""
+    n_areas = -(-h // 256) * -(-w // 256)
+    cap = max(capacity, 64 * n_areas, n_init * 3 // 2 + 64)
+    return int(-(-cap // 64) * 64)
+
+
+def _run_prepared(data: ImageWMaps, c0, m0, orig_hw, setup: EnergySetup,
+                  comb: EnergyCombiner, params: RJMCMCParams, seed: int,
+                  cap: int, segment_size: int,
+                  max_segments: Optional[int], data_moves: bool,
+                  device: torch.device, prep_s: float) -> SceneResult:
+    """The chain and scores of one prepared scene; ``prep_s`` is the time
+    its ``_prepare`` took, which ``seconds["prep"]`` includes."""
+    t_start = time.perf_counter()
+    h, w = data.shape
+    c0, m0 = c0[:cap], m0[:cap]
+    maps = setup.make_maps(data)
+    kd = setup.make_kernel_data(data, intensity=max(1, len(c0)))
+    state = state_from_arrays(c0, m0, capacity=cap, device=device)
+    budget = superstep_budget(h, w, params, segment_size)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    _sync(device)
+    t_prep = prep_s + time.perf_counter() - t_start
+
+    t_chain = time.perf_counter()
+    done, t0, segments = 0, float(params.t0), 0
+    cache, stats = None, None
+    while done < budget.total_super:
+        if max_segments is not None and segments >= max_segments:
+            break
+        n = min(budget.seg_super, budget.total_super - done)
+        state, cache, stats = run_exact_scene_chain(
+            gen, state, maps, setup.spec, comb, kd, n_supersteps=n, t0=t0,
+            alpha_t=budget.alpha_super, t_target=budget.t_target,
+            cache=cache, data_moves=data_moves)
+        done += n
+        segments += 1
+        t0 = max(float(t0 * budget.alpha_super ** n), budget.t_target)
+    _sync(device)
+    t_chain = time.perf_counter() - t_chain
+
+    t_score = time.perf_counter()
+    scores_k = papangelou(state, maps, setup.spec, comb).cpu().numpy()
+    xy, marks = state_to_arrays(state)
+    alive = state.alive.cpu().numpy()
+    t_score = time.perf_counter() - t_score
+    centers_np = np.asarray(xy).reshape(-1, 2)
+    marks_np = np.asarray(marks).reshape(-1, 3)
+    scores_np = scores_k[alive].reshape(-1)
+    # keep detections whose center lies in the original scene extent
+    h0, w0 = orig_hw
+    keep = ((centers_np[:, 0] < h0) & (centers_np[:, 1] < w0)
+            & (centers_np >= 0).all(axis=1))
+    energy = stats.final_energy if stats is not None else torch.zeros(())
+    return SceneResult(
+        centers=centers_np[keep], marks=marks_np[keep],
+        scores=scores_np[keep], total_moves=done * budget.mps,
+        supersteps=done, planned_supersteps=budget.total_super, capacity=cap,
+        seconds={"prep": t_prep, "chain": t_chain, "score": t_score},
+        chain=ChainOutcome(state=state, cache=cache, energy=energy,
+                           maps=maps),
+    )
+
+
+def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
+                    comb: EnergyCombiner, params: RJMCMCParams,
+                    seed: int = 0, capacity: int = 256, init: str = "naive",
+                    segment_size: int = 4096,
+                    max_segments: Optional[int] = None,
+                    data_moves: bool = True, device=None) -> SceneResult:
+    """EXACT whole-scene MPP: one global cell-parallel chain over the full
+    (bucket-padded) maps, then papangelou scores.
+
+    ``max_segments`` stops the anneal after that many segments and scores
+    the state reached (a bounded run; ``supersteps`` says how far it got)."""
+    device = resolve_device(device)
+    t_start = time.perf_counter()
+    target = scene_shape_bucket(*data.shape, 1)
+    data, c0, m0, orig = _prepare(data, setup, target, init, device)
+    cap = _capacity(*data.shape, capacity, len(c0))
+    return _run_prepared(data, c0, m0, orig, setup, comb, params, seed, cap,
+                         segment_size, max_segments,
+                         data_moves, device, time.perf_counter() - t_start)
+
+
+def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
+                             comb: EnergyCombiner, params: RJMCMCParams,
+                             seeds: List[int], capacity: int = 256,
+                             init: str = "naive",
+                             segment_size: int = 4096,
+                             max_segments: Optional[int] = None,
+                             data_moves: bool = True,
+                             device=None) -> List[SceneResult]:
+    """Exact scenes over a batch sharing ONE bucket and ONE capacity (the
+    JAX batched run's signature), run scene by scene: scene i equals
+    ``run_exact_scene`` at that bucket and capacity with ``seeds[i]``."""
+    assert len(datas) > 0
+    device = resolve_device(device)
+    target_h = max(scene_shape_bucket(*d.shape, 1)[0] for d in datas)
+    target_w = max(scene_shape_bucket(*d.shape, 1)[1] for d in datas)
+    prepared, prep_s = [], []
+    for d in datas:
+        t_start = time.perf_counter()
+        prepared.append(_prepare(d, setup, (target_h, target_w), init,
+                                 device))
+        prep_s.append(time.perf_counter() - t_start)
+    cap = max(_capacity(target_h, target_w, capacity, len(p[1]))
+              for p in prepared)
+    return [_run_prepared(d, c0, m0, orig, setup, comb, params, seed, cap,
+                          segment_size, max_segments,
+                          data_moves, device, t_prep)
+            for (d, c0, m0, orig), seed, t_prep
+            in zip(prepared, seeds, prep_s)]
