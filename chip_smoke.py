@@ -8,13 +8,18 @@ exits with code 2 and prints no result.
 Phases (each prints one line with its seconds; any failure raises):
   1. device, ``nvidia-smi`` name and power limit, and the build of the
      port's CUDA kernel from its source (``nvcc``, sm_90a);
-  2. each kernel against its plain PyTorch version on the card, at the
-     flagship TTA batch (8, 1024, 1024), a ragged (3, 469, 753) and a 2-row
-     edge case, in both epilogues and both mask modes; times of the kernel,
-     the plain version and the bound;
+  2. the kernel against its plain PyTorch version on the card, in both
+     epilogues and both mask modes: fused over the 8 TTA views of a 958x926
+     frame from (3, 1024, 1024) head planes whose padding holds large
+     noise, over 8 views at 1024^2, and one 2-row view; and through the
+     batched single-view entry point at (8, 1024, 1024), a ragged
+     (3, 469, 753) and a 2-row case. Then the times of the main-path launch
+     (8 views of 958x926, DivClassifier epilogue, logit mask): the kernel
+     on the device, the same call paced by the host, the plain version and
+     the bytes bound;
   3. CNN maps of one synthetic 958x926 scene (numpy, ``--seed``) at full
      width: the flagship's two PosNets (8-way TTA, max-combined) and its
-     ShapeNet; the kernel must launch 16 times. Weights: see
+     ShapeNet; the kernel must launch once per PosNet. Weights: see
      ``CHECKPOINTED_MODEL``;
   4. the exact whole-scene chain at the 1024 bucket with K = 1024 for
      ``--max-segments`` segments of 341 supersteps: ms per superstep, the
@@ -53,6 +58,9 @@ RTOL, ATOL = 1e-5, 1e-5
 # against different slot subsets
 CACHE_TOL = 1e-4
 H100_BYTES_PER_S = 3.35e12
+# ~50 ms of the card's clock: longer than the host takes to queue a timed
+# run of calls
+SLEEP_CYCLES = 100_000_000
 
 
 def phase(name, t0):
@@ -60,12 +68,16 @@ def phase(name, t0):
 
 
 def cuda_time_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the card sleeps while the host
+    queues all ``reps`` calls, so the events between them time the card,
+    not the host's launch rate."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -74,11 +86,63 @@ def cuda_time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def stencil_bound_ms(n_pixels: int) -> float:
-    """16 B/pixel (two vector components and the mask read, the output
-    written) over the memory rate; ~20 flop/pixel is far below the fp32
-    rate, so bytes bound it."""
-    return 16.0 * n_pixels / H100_BYTES_PER_S * 1e3
+def host_paced_ms(fn, reps: int = 50) -> float:
+    """Wall time of one call of ``fn`` called back to back, synchronised at
+    the end: what a caller waits when the host sets the pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def stencil_bound_ms(view_pixels: int, out_pixels: int) -> float:
+    """12 B per view pixel (two vector components and the mask read once)
+    and 4 B per output pixel (written once) over the memory rate; ~30
+    flop per view pixel is far below the fp32 rate, so bytes bound it."""
+    return (12.0 * view_pixels + 4.0 * out_pixels) / H100_BYTES_PER_S * 1e3
+
+
+def noisy_views(h: int, w: int, n_views: int, pad: int, gen, device):
+    """Head planes of the first ``n_views`` dihedral views of an (h, w)
+    frame, drawn on the card from the seeded generator ``gen``: standard
+    normal [vx, vy, mask] in each view's crop, large noise (+-1e3) in the
+    (pad, pad) planes around it, which the kernel must never read."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
+    from mpp_cnn_rs_object_detection_torch.ops.dihedral import D4_ELEMENTS
+
+    views = []
+    for k, flip in D4_ELEMENTS[:n_views]:
+        crop = (w, h) if k % 2 else (h, w)
+        planes = torch.empty((3, pad, pad), device=device).uniform_(
+            -1e3, 1e3, generator=gen)
+        planes[:, :crop[0], :crop[1]] = torch.randn(
+            (3,) + crop, device=device, generator=gen)
+        views.append(dk.View(planes, crop, (k, flip)))
+    return views
+
+
+def compare(name, got, want):
+    """Max abs / rel error of the kernel against its plain version; raises
+    outside the tolerance."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.abs().clamp(min=1e-6)).max())
+    print(f"  kernel {name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
+          f"tol=atol {ATOL} + rtol {RTOL}", flush=True)
+    if not bool((err <= ATOL + RTOL * want.abs()).all()):
+        raise AssertionError(f"detection_map kernel disagrees with its "
+                             f"plain version: {name}")
+    return max_abs
 
 
 def kernel_vs_plain(device, seed: int):
@@ -89,58 +153,60 @@ def kernel_vs_plain(device, seed: int):
     from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
 
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     worst = 0.0
+    modes = [(e, lg) for e in ("detection", "div_clf") for lg in (True, False)]
+    for (h, w), n_views, pad in [((HEIGHT, WIDTH), 8, 1024),
+                                 ((1024, 1024), 8, 1024), ((2, 517), 1, 520)]:
+        views = noisy_views(h, w, n_views, pad, gen, device)
+        probs = [v._replace(planes=torch.cat(
+            [v.planes[:2], torch.sigmoid(v.planes[2:])])) for v in views]
+        for epilogue, mask_is_logit in modes:
+            vs = views if mask_is_logit else probs
+            kw = dict(mask_is_logit=mask_is_logit, epilogue=epilogue,
+                      clf_w=-3.0, clf_b=0.5)
+            worst = max(worst, compare(
+                f"tta {epilogue:9s} logit={int(mask_is_logit)} {n_views} "
+                f"views of {(h, w)}", dk.detection_map_tta(vs, (h, w), **kw),
+                dk.detection_map_tta_plain(vs, (h, w), **kw)))
+        del views, probs
     for shape in [(8, 1024, 1024), (3, 469, 753), (1, 2, 517)]:
         vec = torch.from_numpy(rng.normal(size=shape + (2,)).astype(
             np.float32)).to(device)
         logit = torch.from_numpy(rng.normal(size=shape).astype(
             np.float32)).to(device)
-        for epilogue in ("detection", "div_clf"):
-            for mask_is_logit in (True, False):
-                mask = logit if mask_is_logit else torch.sigmoid(logit)
-                kw = dict(mask_is_logit=mask_is_logit, epilogue=epilogue,
-                          clf_w=-3.0, clf_b=0.5)
-                got = dk.detection_map(vec, mask, **kw)
-                want = dk.detection_map_plain(vec, mask, **kw)
-                torch.cuda.synchronize()
-                err = (got - want).abs()
-                max_abs = float(err.max())
-                max_rel = float((err / want.abs().clamp(min=1e-6)).max())
-                ok = bool((err <= ATOL + RTOL * want.abs()).all())
-                print(f"  kernel {epilogue:9s} logit={int(mask_is_logit)} "
-                      f"{shape}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
-                      f"tol=atol {ATOL} + rtol {RTOL}", flush=True)
-                if not ok:
-                    raise AssertionError(
-                        f"detection_map kernel disagrees with its plain "
-                        f"version at {shape} {epilogue} logit={mask_is_logit}")
-                worst = max(worst, max_abs)
-        n = int(np.prod(shape))
-        k_ms = cuda_time_ms(lambda: dk.detection_map(vec, logit))
-        p_ms = cuda_time_ms(lambda: dk.detection_map_plain(vec, logit))
-        print(f"  time {shape}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {stencil_bound_ms(n):.4f} ms (bytes)", flush=True)
+        for epilogue, mask_is_logit in modes:
+            mask = logit if mask_is_logit else torch.sigmoid(logit)
+            kw = dict(mask_is_logit=mask_is_logit, epilogue=epilogue,
+                      clf_w=-3.0, clf_b=0.5)
+            worst = max(worst, compare(
+                f"batched {epilogue:9s} logit={int(mask_is_logit)} {shape}",
+                dk.detection_map(vec, mask, **kw),
+                dk.detection_map_plain(vec, mask, **kw)))
     return worst
 
 
-def main_path_kernel_times(device, h: int, w: int, seed: int):
-    """Kernel / plain times at the shape the main path launches it with:
-    one (h, w) TTA variant, DivClassifier epilogue, probability mask."""
-    import numpy as np
+def main_path_kernel_times(device, seed: int):
+    """Times at the launch the main path makes: the 8 TTA views of one
+    HEIGHT x WIDTH scene from (3, 1024, 1024) head planes, DivClassifier
+    epilogue, logit mask. Returns (device ms, host-paced ms, plain ms,
+    bound ms)."""
     import torch
 
     from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
 
-    rng = np.random.default_rng(seed + 1)
-    vec = torch.from_numpy(rng.normal(size=(h, w, 2)).astype(
-        np.float32)).to(device)
-    mask = torch.from_numpy(rng.uniform(size=(h, w)).astype(
-        np.float32)).to(device)
-    kw = dict(mask_is_logit=False, epilogue="div_clf", clf_w=-3.0, clf_b=0.5)
-    k_ms = cuda_time_ms(lambda: dk.detection_map(vec, mask, **kw), reps=50)
-    p_ms = cuda_time_ms(lambda: dk.detection_map_plain(vec, mask, **kw),
+    views = noisy_views(HEIGHT, WIDTH, 8, 1024, torch.Generator(
+        device=device).manual_seed(seed + 1), device)
+    hw = (HEIGHT, WIDTH)
+    kw = dict(mask_is_logit=True, epilogue="div_clf", clf_w=-3.0, clf_b=0.5)
+    k_ms = cuda_time_ms(lambda: dk.detection_map_tta(views, hw, **kw),
                         reps=50)
-    return k_ms, p_ms, stencil_bound_ms(h * w)
+    host_ms = host_paced_ms(lambda: dk.detection_map_tta(views, hw, **kw))
+    p_ms = cuda_time_ms(lambda: dk.detection_map_tta_plain(views, hw, **kw),
+                        reps=5)
+    bound = stencil_bound_ms(sum(v.crop[0] * v.crop[1] for v in views),
+                             HEIGHT * WIDTH)
+    return k_ms, host_ms, p_ms, bound
 
 
 def seeded_weights_(module, generator) -> None:
@@ -268,7 +334,7 @@ def run(args, device: str = "cuda:0") -> int:
     log_path = lib_path + ".log"
     with open(log_path) as f:
         ptxas = " | ".join(ln.strip() for ln in f
-                           if "registers" in ln or "smem" in ln)
+                           if "registers" in ln or "spill" in ln)
     print(f"  built {dk.KERNEL.name} in {time.perf_counter() - tb:.2f} s; "
           f"ptxas: {ptxas}", flush=True)
     phase("1 device + build", t0)
@@ -303,9 +369,9 @@ def run(args, device: str = "cuda:0") -> int:
         assert float((d.sum(-1) - 1).abs().max()) < 1e-3
     print(f"  maps: detection max {float(det.max()):.4f} mean "
           f"{float(det.mean()):.4f}; {launches_cnn} kernel launches "
-          f"({len(pos_models)} PosNets x 8 TTA)", flush=True)
-    if launches_cnn != 8 * len(pos_models):
-        raise AssertionError(f"expected {8 * len(pos_models)} detection-map "
+          f"({len(pos_models)} PosNets, 8 TTA views each)", flush=True)
+    if launches_cnn != len(pos_models):
+        raise AssertionError(f"expected {len(pos_models)} detection-map "
                              f"kernel launches, counted {launches_cnn}")
     phase("3 CNN maps", t0)
 
@@ -355,8 +421,12 @@ def run(args, device: str = "cuda:0") -> int:
     if launches == 0:
         raise AssertionError("the main path launched no detection-map kernel")
 
-    k_ms, p_ms, bound = main_path_kernel_times(device, HEIGHT, WIDTH,
-                                               args.seed)
+    k_ms, host_ms, p_ms, bound = main_path_kernel_times(device, args.seed)
+    print(f"  time of the main-path launch (8 views of {HEIGHT}x{WIDTH}, "
+          f"div_clf, logit mask): kernel {k_ms:.4f} ms on the device, "
+          f"{host_ms:.4f} ms paced by the host; plain {p_ms:.4f} ms; bound "
+          f"{bound:.4f} ms (bytes); {100 * bound / k_ms:.1f} % of the bound",
+          flush=True)
     kernels = [{
         "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
         "replaces": dk.KERNEL.replaces, "launches": launches,

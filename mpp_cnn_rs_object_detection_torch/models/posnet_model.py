@@ -6,14 +6,15 @@ Counterpart of the inference part of
 float tensors in [0, 1]; maps keep the JAX package's layout ((H, W) mask,
 (H, W, 2) vectors). Both detection-map branches -- the DivClassifier head
 and ``clip(-div/2, 0, 1) * mask`` -- go through the CUDA stencil kernel on a
-GPU tensor (``ops/detection_kernel.py``).
+GPU tensor (``ops/detection_kernel.py``), which takes the 8 TTA views' head
+outputs in one launch.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +30,13 @@ from mpp_cnn_rs_object_detection_torch.models.unet import (
     infer_pad_hw,
 )
 from mpp_cnn_rs_object_detection_torch.ops.detection_kernel import (
+    View,
     detection_map,
+    detection_map_tta,
+)
+from mpp_cnn_rs_object_detection_torch.ops.dihedral import (
+    D4_ELEMENTS,
+    transform_image,
 )
 
 PATCH_SIZE = 512
@@ -45,29 +52,35 @@ def _inference_module(module: torch.nn.Module, device) -> torch.nn.Module:
     return module.to(device).eval().requires_grad_(False)
 
 
-def infer_chunked(image: torch.Tensor, forward):
-    """Run ``forward`` on the whole (H, W, 3) image padded to its bucket, or
-    on ``PATCH_SIZE`` tiles when the image exceeds 2 * PATCH_SIZE per side;
-    ``forward`` maps a padded image to a list of (h, w, ...) outputs."""
+def infer_chunked(image: torch.Tensor, forward) -> List[torch.Tensor]:
+    """Channels-first outputs of ``forward`` over the (h, w, 3) image whose
+    ``[:, :h, :w]`` is the image's: ``forward`` maps a padded image to a
+    list of (C, Hp, Wp) maps. The whole image runs padded to its bucket and
+    its outputs come back uncropped; an image above 2 * PATCH_SIZE per side
+    runs in ``PATCH_SIZE`` tiles, assembled into (C, h, P) buffers with P
+    = w rounded up to a multiple of 4 (the detection-map kernel's pitch)."""
     h, w = image.shape[:2]
     patch = PATCH_SIZE
 
-    def chunk(img):
+    def run(img):
         th, tw = infer_pad_hw(*img.shape[:2])
-        padded = F.pad(img, (0, 0, 0, tw - img.shape[1], 0, th - img.shape[0]))
-        return [o[: img.shape[0], : img.shape[1]] for o in forward(padded)]
+        return forward(F.pad(img, (0, 0, 0, tw - img.shape[1], 0,
+                                   th - img.shape[0])))
 
     if max(h, w) <= 2 * patch:
-        return chunk(image)
+        return run(image)
     outs = None
     for i in range(0, h, patch):
         for j in range(0, w, patch):
-            part = chunk(image[i:i + patch, j:j + patch])
+            tile = image[i:i + patch, j:j + patch]
+            ph, pw = tile.shape[:2]
+            part = run(tile)
             if outs is None:
-                outs = [torch.empty((h, w) + p.shape[2:], dtype=p.dtype,
-                                    device=p.device) for p in part]
+                outs = [torch.empty((p.shape[0], h, -(-w // 4) * 4),
+                                    dtype=p.dtype, device=p.device)
+                        for p in part]
             for o, p in zip(outs, part):
-                o[i:i + patch, j:j + patch] = p
+                o[:, i:i + ph, j:j + pw] = p[:, :ph, :pw]
     return outs
 
 
@@ -109,44 +122,51 @@ class PosNetModel:
         self.load_variables(ck["params"], ck["batch_stats"])
 
     @torch.no_grad()
+    def head_planes(self, image: torch.Tensor) -> torch.Tensor:
+        """(h, w, 3) image -> the head's raw ``[vx, vy, mask logit]`` as
+        (3, Hp, P) fp32 planes whose ``[:, :h, :w]`` is the image's."""
+        image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+        return infer_chunked(
+            image, lambda padded: [self.net(padded.permute(2, 0, 1)[None])[0]]
+        )[0]
+
     def infer_on_image(self, image: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(H, W, 3) image -> (mask (H, W) probabilities, vec (H, W, 2))."""
-        image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+        h, w = image.shape[:2]
+        planes = self.head_planes(image)[:, :h, :w]
+        return (torch.sigmoid(planes[2]).contiguous(),
+                planes[:2].permute(1, 2, 0).contiguous())
 
-        def fwd(padded):
-            out = self.net(padded.permute(2, 0, 1)[None])[0]
-            return [torch.sigmoid(out[2]), out[:2].permute(1, 2, 0)]
-
-        mask, vec = infer_chunked(image, fwd)
-        return mask.contiguous(), vec.contiguous()
+    def _epilogue(self) -> Dict:
+        """The kernel's epilogue arguments: the DivClassifier head if
+        trained (``sigmoid(w*div*mask + b)``), else ``clip(-div/2, 0, 1) *
+        mask``."""
+        if self.div_clf is None:
+            return {"epilogue": "detection"}
+        if self._clf_wb is None:
+            self._clf_wb = self.div_clf.scalars
+        w, b = self._clf_wb
+        return {"epilogue": "div_clf", "clf_w": w, "clf_b": b}
 
     def vec2detection_map(self, vector_map: torch.Tensor,
                           mask: torch.Tensor) -> torch.Tensor:
-        """DivClassifier head if trained (``sigmoid(w*div*mask + b)``), else
-        ``clip(-div/2, 0, 1) * mask``; both in the stencil kernel."""
-        if self.div_clf is not None:
-            if self._clf_wb is None:
-                self._clf_wb = self.div_clf.scalars
-            w, b = self._clf_wb
-            return detection_map(vector_map, mask, mask_is_logit=False,
-                                 epilogue="div_clf", clf_w=w, clf_b=b)
+        """Detection map of one (vec, mask probabilities) pair."""
         return detection_map(vector_map, mask, mask_is_logit=False,
-                             epilogue="detection")
+                             **self._epilogue())
 
+    @torch.no_grad()
     def detection_map_on_image(self, image: torch.Tensor) -> torch.Tensor:
         """Detection map; with ``inference.tta`` the mean over the 8 dihedral
-        symmetries (each a full forward + kernel launch)."""
+        symmetries. Each view is one forward; the views' raw head outputs go
+        to the detection-map kernel together, in one launch that pulls
+        their maps back and averages them."""
         image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
-        if not bool(self.config.get("inference", {}).get("tta", False)):
-            mask, vec = self.infer_on_image(image)
-            return self.vec2detection_map(vec, mask)
-        from mpp_cnn_rs_object_detection_torch.ops.dihedral import (
-            tta_scalar_map,
-        )
-
-        def one(img_t):
-            mask, vec = self.infer_on_image(img_t.contiguous())
-            return self.vec2detection_map(vec, mask)
-
-        return tta_scalar_map(one, image)
+        tta = bool(self.config.get("inference", {}).get("tta", False))
+        views = []
+        for k, flip in (D4_ELEMENTS if tta else ((0, False),)):
+            img_t = transform_image(image, k, flip).contiguous()
+            views.append(View(self.head_planes(img_t),
+                              tuple(img_t.shape[:2]), (k, flip)))
+        return detection_map_tta(views, tuple(image.shape[:2]),
+                                 mask_is_logit=True, **self._epilogue())

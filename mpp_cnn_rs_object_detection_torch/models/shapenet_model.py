@@ -70,9 +70,11 @@ class ShapeNetModel:
 
         def fwd(padded):
             outs = self.net(padded.permute(2, 0, 1)[None])
-            return [torch.softmax(o[0], dim=0).permute(1, 2, 0) for o in outs]
+            return [torch.softmax(o[0], dim=0) for o in outs]
 
-        return [o.contiguous() for o in infer_chunked(image, fwd)]
+        h, w = image.shape[:2]
+        return [o[:, :h, :w].permute(1, 2, 0).contiguous()
+                for o in infer_chunked(image, fwd)]
 
     def dist_maps_on_image(self, image: torch.Tensor) -> List[torch.Tensor]:
         image = torch.as_tensor(image, dtype=torch.float32, device=self.device)

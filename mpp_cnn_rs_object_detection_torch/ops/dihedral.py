@@ -47,6 +47,21 @@ def transform_points(pts: np.ndarray, h: int, w: int, k: int, flip: bool
     return pts
 
 
+def view_index_map(k: int, flip: bool, h: int, w: int
+                   ) -> Tuple[int, int, int, int, int, int]:
+    """Integer affine map ``(a0, ai, aj, b0, bi, bj)`` of the element
+    ``(k, flip)``: pixel ``(i, j)`` of an (h, w) image lies at ``(a0 + ai*i
+    + aj*j, b0 + bi*i + bj*j)`` of the transformed image -- the same map as
+    :func:`transform_points`, as six integers for the detection-map kernel."""
+    a0, ai, aj, b0, bi, bj = 0, 1, 0, 0, 0, 1
+    if flip:
+        a0, ai, aj = (h - 1) - a0, -ai, -aj
+    for _ in range(k % 4):
+        a0, ai, aj, b0, bi, bj = (w - 1) - b0, -bi, -bj, a0, ai, aj
+        h, w = w, h
+    return a0, ai, aj, b0, bi, bj
+
+
 def angle_gather_indices(n_classes: int, k: int, flip: bool) -> np.ndarray:
     """Index array ``g`` with ``dist_original = dist_transformed[..., g]``."""
     assert n_classes % 2 == 0, "angle TTA needs an even bin count"
@@ -55,19 +70,6 @@ def angle_gather_indices(n_classes: int, k: int, flip: bool) -> np.ndarray:
     if flip:
         return (shift - i - 1) % n_classes
     return (i + shift) % n_classes
-
-
-def tta_scalar_map(infer_fn: Callable[[torch.Tensor], torch.Tensor],
-                   image: torch.Tensor,
-                   elements: Sequence[Tuple[int, bool]] = D4_ELEMENTS,
-                   ) -> torch.Tensor:
-    """Mean over the group of ``pullback(infer_fn(transform(image)))``."""
-    acc = None
-    for k, flip in elements:
-        m = inverse_transform_map(infer_fn(transform_image(image, k, flip)),
-                                  k, flip)
-        acc = m if acc is None else acc + m
-    return acc / float(len(elements))
 
 
 def tta_dist_maps(infer_fn: Callable[[torch.Tensor], List[torch.Tensor]],

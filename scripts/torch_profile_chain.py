@@ -4,8 +4,9 @@
 Loads the flagship configuration (``mpp_log_r12ttapar``) with all three of
 its trained U-Net checkpoints through ``SceneInference.from_storage`` (a
 missing checkpoint raises), makes a synthetic 958x926 scene, times its CNN
-maps, and profiles a window of chain supersteps at the 1024 bucket with
-K = 1024 with ``torch.profiler``: wall time per superstep, device kernel
+maps and counts their detection-map kernel launches, and profiles a window
+of chain supersteps at the 1024 bucket with K = 1024 with
+``torch.profiler``: wall time per superstep, device kernel
 time and kernel launches per superstep, the device's idle share (device
 kernel time against the unprofiled wall time), and the kernels that take
 the most device time.
@@ -66,6 +67,7 @@ def main() -> int:
     from mpp_cnn_rs_object_detection_torch.mpp.state import (
         state_from_arrays,
     )
+    from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -83,10 +85,12 @@ def main() -> int:
 
     inf.cnn_maps(image)  # warm-up (cuDNN algorithm choice)
     sync()
+    dk.KERNEL.launches = 0
     t0 = time.perf_counter()
     data = inf.cnn_maps(image)
     sync()
     cnn_s = time.perf_counter() - t0
+    cnn_launches = dk.KERNEL.launches
 
     target = scene.scene_shape_bucket(*data.shape)
     data, c0, m0, _ = scene._prepare(data, setup, target, "naive", dev)
@@ -132,6 +136,7 @@ def main() -> int:
         "bucket": list(target), "capacity": cap,
         "cells_per_superstep": (max(h, w) // (2 * CELL) + 1) ** 2,
         "cnn_maps_s": cnn_s,
+        "detection_map_launches_per_scene": cnn_launches,
         "superstep_wall_ms": 1e3 * wall_unprofiled_s / n,
         "superstep_wall_ms_profiled": 1e3 * wall_s / n,
         "superstep_device_ms": dev_us / 1e3 / n,

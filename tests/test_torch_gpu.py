@@ -10,6 +10,10 @@ import pytest
 import torch
 
 from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
+from mpp_cnn_rs_object_detection_torch.ops.dihedral import D4_ELEMENTS
+# by its own name: pytest puts this directory on sys.path, and a GPU host
+# may have another package named ``tests`` installed
+from _torch_util import noisy_view_planes
 
 # fp32 stencil arithmetic in another association order than the plain
 # composition (sqrt/div/exp are IEEE / few-ulp on both sides)
@@ -62,3 +66,57 @@ def test_detection_map_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         dk.detection_map(vec.transpose(0, 1), torch.zeros((16, 16),
                                                            device="cuda"))
+
+
+def _cuda_views(h, w, elements, pad, seed=0, pitch_extra=0):
+    return [dk.View(torch.from_numpy(p).cuda(), crop, el) for p, crop, el in
+            noisy_view_planes(h, w, elements, pad, seed, pitch_extra)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_views", [8, 1])
+@pytest.mark.parametrize("epilogue", ["detection", "div_clf"])
+@pytest.mark.parametrize("mask_is_logit", [True, False])
+def test_tta_kernel_matches_plain(n_views, epilogue, mask_is_logit):
+    """Noise-filled padding around every crop; frames whose sides are not
+    tile multiples, a pitch wider than the pad, and 2-row / 2-column
+    crops (the one-sided differences on both edges of a view)."""
+    _need_cuda()
+    elements = D4_ELEMENTS[:n_views]
+    cases = [((70, 90), 128, 0), ((300, 173), 320, 8), ((2, 37), 40, 4),
+             ((41, 2), 44, 0)]
+    for seed, ((h, w), pad, extra) in enumerate(cases):
+        views = _cuda_views(h, w, elements, pad, seed, extra)
+        if not mask_is_logit:
+            for v in views:
+                v.planes[2] = torch.sigmoid(v.planes[2])
+        kw = dict(mask_is_logit=mask_is_logit, epilogue=epilogue,
+                  clf_w=-2.0, clf_b=0.5)
+        before = dk.KERNEL.launches
+        got = dk.detection_map_tta(views, (h, w), **kw)
+        torch.cuda.synchronize()
+        assert dk.KERNEL.launches == before + 1
+        assert got.shape == (h, w)
+        want = dk.detection_map_tta_plain(views, (h, w), **kw)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_tta_kernel_refuses_what_it_does_not_take():
+    _need_cuda()
+    views = _cuda_views(20, 24, D4_ELEMENTS, 32)
+    # a row pitch that is not a multiple of 4
+    odd = [dk.View(torch.zeros((3, 20, 30), device="cuda"), (20, 24))]
+    with pytest.raises(ValueError, match="pitch"):
+        dk.detection_map_tta(odd, (20, 24))
+    with pytest.raises(TypeError):
+        dk.detection_map_tta([v._replace(planes=v.planes.double())
+                              for v in views], (20, 24))
+    with pytest.raises(ValueError):  # one view's planes on the CPU
+        dk.detection_map_tta(views[:7] + [views[7]._replace(
+            planes=views[7].planes.cpu())], (20, 24))
+    thin = [dk.View(torch.zeros((3, 32, 32), device="cuda"), (1, 24))]
+    with pytest.raises(ValueError, match="at least 2"):
+        dk.detection_map_tta(thin, (1, 24))
+    with pytest.raises(ValueError):  # a crop that is not the view's frame
+        dk.detection_map_tta(views, (24, 20))

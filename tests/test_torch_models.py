@@ -222,3 +222,68 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TPosNetModel(cfg)
     assert TPosNetModel(cfg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("tta", [True, False])
+@pytest.mark.parametrize("head", ["div_clf", "detection"])
+def test_posnet_detection_map_on_image(tta, head):
+    """With and without TTA, with the DivClassifier head and without it:
+    the port's fused route (its plain version here) against the JAX
+    package's per-view forward + map + pull-back + mean."""
+    jm, params, stats = _jax_pos_model(NARROW)
+    jm.config = {"inference": {"tta": tta}}
+    cfg = _pos_config(NARROW)
+    cfg["inference"]["tta"] = tta
+    tm = TPosNetModel(cfg, device="cpu")
+    tm.load_variables(jax.device_get(params), jax.device_get(stats))
+    if head == "detection":
+        jm.div_clf, tm.div_clf = None, None
+    img = _image(70, 90, seed=8)
+    got = tm.detection_map_on_image(torch.from_numpy(img)).numpy()
+    assert got.shape == (70, 90)
+    np.testing.assert_allclose(got, jm.detection_map_on_image(img),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_tiled_detection_map_on_image(monkeypatch):
+    """The tiled branch (sides above 2 * PATCH_SIZE) assembles each view's
+    head planes into one pitched buffer that feeds the fused route."""
+    from mpp_cnn_rs_object_detection_torch.models import posnet_model as tpm
+    from mpp_cnn_rs_object_detection_tpu.models import posnet_model as jpm
+
+    monkeypatch.setattr(jpm, "PATCH_SIZE", 64)
+    monkeypatch.setattr(tpm, "PATCH_SIZE", 64)
+    jm, params, stats = _jax_pos_model(NARROW)
+    tm = TPosNetModel(_pos_config(NARROW), device="cpu")
+    tm.load_variables(jax.device_get(params), jax.device_get(stats))
+    img = _image(150, 98, seed=9)
+    planes = tm.head_planes(torch.from_numpy(img))
+    assert planes.shape == (3, 150, 100) and planes.stride(1) % 4 == 0
+    got = tm.detection_map_on_image(torch.from_numpy(img)).numpy()
+    np.testing.assert_allclose(got, jm.detection_map_on_image(img),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_tta_hands_all_views_to_one_fused_call(monkeypatch):
+    """One ``detection_map_tta`` call per image, with the 8 views' raw head
+    outputs (padded to the bucket, logit mask) in D4 order."""
+    from mpp_cnn_rs_object_detection_torch.models import posnet_model as tpm
+    from mpp_cnn_rs_object_detection_torch.ops.dihedral import D4_ELEMENTS
+
+    calls = []
+    real = tpm.detection_map_tta
+
+    def spy(views, out_hw, **kw):
+        calls.append((views, out_hw, kw))
+        return real(views, out_hw, **kw)
+
+    monkeypatch.setattr(tpm, "detection_map_tta", spy)
+    tm = TPosNetModel(_pos_config(NARROW), device="cpu")
+    tm.detection_map_on_image(torch.from_numpy(_image(70, 90, seed=10)))
+    assert len(calls) == 1
+    views, out_hw, kw = calls[0]
+    assert out_hw == (70, 90) and kw["mask_is_logit"]
+    assert kw["epilogue"] == "div_clf"
+    assert [v.element for v in views] == list(D4_ELEMENTS)
+    assert [v.crop for v in views] == [(70, 90), (90, 70)] * 4
+    assert all(v.planes.shape == (3, 128, 128) for v in views)
