@@ -11,7 +11,9 @@ Phases (each prints one line with its seconds; any failure raises):
   2. the kernel against its plain PyTorch version on the card, in both
      epilogues and both mask modes: fused over the 8 TTA views of a 958x926
      frame from (3, 1024, 1024) head planes whose padding holds large
-     noise, over 8 views at 1024^2, and one 2-row view; and through the
+     noise, over the single view of that frame (the launch of a ShapeNet's
+     un-augmented ``pos_model`` in phase 6), over 8 views at 1024^2, and one
+     2-row view; and through the
      batched single-view entry point at (8, 1024, 1024), a ragged
      (3, 469, 753) and a 2-row case. Then the times of the main-path launch
      (8 views of 958x926, DivClassifier epilogue, logit mask): the kernel
@@ -25,8 +27,19 @@ Phases (each prints one line with its seconds; any failure raises):
      ``--max-segments`` segments of 341 supersteps: ms per superstep, the
      projected full-budget seconds, a finite energy, and the carried cache
      and energy against a rebuild;
-  5. papangelou scores (finite, positive) and the detection count after the
-     distance NMS.
+  5. papangelou scores (finite, positive) and the detection count: every
+     point of the final configuration, as the export writes it;
+  6. the port's command line on a dataset, from a temporary directory with
+     its own ``paths_config.json``: ``make_synth_dataset`` writes 2 val
+     scenes of 958x926 with 150 rectangles each (``--seed``), the model
+     store holds ``CHECKPOINTED_MODEL`` (linked) and the flagship's other
+     U-Nets (``pos_r2_tta``, ``shape_r5ls_tta`` and its ``pos_r2cp``) with
+     weights drawn from ``--seed`` and written with the port's msgpack
+     writer, and a copy of the flagship config whose only change is a
+     ``max_iter`` stopping block of one 341-superstep segment per scene.
+     ``-p infereval -m mpp`` must launch the detection-map kernel 3 times
+     per scene, write both result pickles, ``dota/`` and ``dota-SV/`` and
+     every metrics JSON with finite APs, and remove its chain checkpoint.
 Then one JSON line per kernel table, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -36,13 +49,17 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 MPP_CONFIG = "mpp_log_r12ttapar"
 # the synthetic scene: the flagship's shape (pads to the 1024 bucket and
 # exercises the crop) and a DOTA-like vehicle count
 HEIGHT, WIDTH, OBJECTS = 958, 926, 150
+# phase 6: the val scenes of the synthetic dataset
+CLI_SCENES = 2
 # The exported tree carries the trained weights of one flagship U-Net (each
 # flagship checkpoint is 23 MB, and the export is kept small): this one
 # loads from its checkpoint through the port's msgpack reader, and a missing
@@ -157,6 +174,7 @@ def kernel_vs_plain(device, seed: int):
     worst = 0.0
     modes = [(e, lg) for e in ("detection", "div_clf") for lg in (True, False)]
     for (h, w), n_views, pad in [((HEIGHT, WIDTH), 8, 1024),
+                                 ((HEIGHT, WIDTH), 1, 1024),
                                  ((1024, 1024), 8, 1024), ((2, 517), 1, 520)]:
         views = noisy_views(h, w, n_views, pad, gen, device)
         probs = [v._replace(planes=torch.cat(
@@ -227,6 +245,26 @@ def seeded_weights_(module, generator) -> None:
                 p.copy_(0.1 * z)
 
 
+def _build_model(cls, kind, name, device, gen, config=None):
+    """``name``'s network from its stored config (or ``config``): the
+    trained checkpoint for ``CHECKPOINTED_MODEL``, else weights drawn from
+    ``gen``."""
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import MODELS_ROOT
+
+    model_dir = os.path.join(MODELS_ROOT, kind, name)
+    if name == CHECKPOINTED_MODEL:
+        return cls.from_model_dir(model_dir, device), "trained checkpoint " \
+            "via the msgpack reader"
+    if config is None:
+        with open(os.path.join(model_dir, "config.json")) as f:
+            config = json.load(f)
+    model = cls(config, device=device)
+    for module in (model.net, getattr(model, "div_clf", None)):
+        if module is not None:
+            seeded_weights_(module, gen)
+    return model, "weights drawn from the seed"
+
+
 def load_models(config, device, seed: int):
     """The flagship's PosNets and ShapeNet (see ``CHECKPOINTED_MODEL``)."""
     import torch
@@ -237,7 +275,6 @@ def load_models(config, device, seed: int):
     from mpp_cnn_rs_object_detection_torch.models.shapenet_model import (
         ShapeNetModel,
     )
-    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import MODELS_ROOT
 
     gen = torch.Generator().manual_seed(seed)
     names = config["dataset"]["position_model"]
@@ -245,24 +282,167 @@ def load_models(config, device, seed: int):
     wanted.append((ShapeNetModel, "shapenet", config["dataset"]["shape_model"]))
     models = []
     for cls, kind, name in wanted:
-        model_dir = os.path.join(MODELS_ROOT, kind, name)
-        if name == CHECKPOINTED_MODEL:
-            model = cls.from_model_dir(model_dir, device)
-            source = "trained checkpoint via the msgpack reader"
-        else:
-            with open(os.path.join(model_dir, "config.json")) as f:
-                model = cls(json.load(f), device=device)
-            for module in (model.net, getattr(model, "div_clf", None)):
-                if module is not None:
-                    seeded_weights_(module, gen)
-            source = f"weights drawn from seed {seed}"
+        model, source = _build_model(cls, kind, name, device, gen)
         print(f"  {kind} {name}: hidden_dims "
-              f"{model.config['model']['hidden_dims']}, {source}", flush=True)
+              f"{model.config['model']['hidden_dims']}, {source} {seed}",
+              flush=True)
         models.append(model)
     if CHECKPOINTED_MODEL not in names:
         raise AssertionError(f"{MPP_CONFIG} no longer uses "
                              f"{CHECKPOINTED_MODEL}")
     return models[:-1], models[-1]
+
+
+def cli_workspace(root: str, config, device, seed: int) -> str:
+    """Phase 6's dataset, model store and config under ``root``; returns
+    the config's path."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.data.synth import (
+        make_synth_dataset,
+    )
+    from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
+        PosNetModel,
+    )
+    from mpp_cnn_rs_object_detection_torch.models.shapenet_model import (
+        ShapeNetModel,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import (
+        MODELS_ROOT,
+        REPO_ROOT,
+        rjmcmc_params_from_config,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import (
+        scene_shape_bucket,
+        superstep_budget,
+    )
+
+    data, models = os.path.join(root, "data"), os.path.join(root, "models")
+    with open(os.path.join(root, "paths_config.json"), "w") as f:
+        json.dump({"dataset_path": [data], "model_path": [models]}, f)
+    make_synth_dataset(name="synth_smoke", n_items=CLI_SCENES,
+                       shape=(HEIGHT, WIDTH), n_rect=OBJECTS, seed=seed,
+                       base_dir=data)
+
+    def model_config(kind, name):
+        # the config the CLI resolves the name to (model_configs/)
+        with open(os.path.join(REPO_ROOT, "model_configs", kind,
+                               name + ".json")) as f:
+            return json.load(f)
+
+    shape_name = config["dataset"]["shape_model"]
+    shape_pos = model_config("shapenet", shape_name)["inference"]["pos_model"]
+    gen = torch.Generator().manual_seed(seed)
+    wanted = [(PosNetModel, "posnet", n)
+              for n in config["dataset"]["position_model"] + [shape_pos]]
+    wanted.append((ShapeNetModel, "shapenet", shape_name))
+    for cls, kind, name in wanted:
+        dst = os.path.join(models, kind, name)
+        os.makedirs(dst)
+        cfg = model_config(kind, name)
+        with open(os.path.join(dst, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1)
+        if name == CHECKPOINTED_MODEL:
+            os.symlink(os.path.join(MODELS_ROOT, kind, name, "model.msgpack"),
+                       os.path.join(dst, "model.msgpack"))
+            source = "trained checkpoint, linked"
+        else:
+            model, source = _build_model(cls, kind, name, device, gen, cfg)
+            model.save_path = dst
+            model.save()
+            source += f" {seed}, written by the msgpack writer"
+        print(f"  store {kind}/{name}: {source}", flush=True)
+
+    mpp_dst = os.path.join(models, "mpp", config["model_name"])
+    os.makedirs(mpp_dst)
+    for f in ("config.json", "calibration.json",
+              "energy_combination_model.json"):
+        shutil.copy(os.path.join(MODELS_ROOT, "mpp", config["model_name"], f),
+                    mpp_dst)
+    # the depth cut: stop each scene's chain after its first segment
+    h, w = scene_shape_bucket(HEIGHT, WIDTH)
+    budget = superstep_budget(h, w, rjmcmc_params_from_config(config),
+                              config["inference"].get("segment_size", 4096))
+    assert budget.seg_super == 341, budget
+    cut = json.loads(json.dumps(config))
+    cut["dataset"]["dataset"] = "synth_smoke"
+    cut["inference"]["rjmcmc_params"]["stopping"] = {
+        "kind": "max_iter", "max_iter": budget.seg_super * budget.mps}
+    path = os.path.join(root, MPP_CONFIG + ".json")
+    with open(path, "w") as f:
+        json.dump(cut, f, indent=1)
+    return path
+
+
+def cli_phase(config, device, seed: int) -> int:
+    """Phase 6; returns the detection-map kernel launches it counted."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.__main__ import main as cli_main
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+    from mpp_cnn_rs_object_detection_torch.utils.config import (
+        get_inference_path,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cwd = os.getcwd()
+    try:
+        t0 = time.perf_counter()
+        cfg_path = cli_workspace(root, config, device, seed)
+        print(f"  workspace (dataset, model store, config): "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        os.chdir(root)
+        dk.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        model = cli_main(["-p", "infereval", "-m", "mpp", "-c", cfg_path],
+                         device=device)
+        t_cli = time.perf_counter() - t0
+        launches = dk.KERNEL.launches
+        sec = model.seconds
+        print(f"  CLI -p infereval -m mpp: {t_cli:.3f} s; "
+              f"ensure_cnn_inference {sec['cnn'] + sec['host']:.3f} s "
+              f"(U-Net + kernel {sec['cnn']:.3f} s, host {sec['host']:.3f} s"
+              f" of which distance NMS {sec['nms']:.3f} s and ShapeNet mark "
+              f"decoding {sec['decode']:.3f} s); load maps "
+              f"{sec['load']:.3f} s; chains "
+              f"{sec['chain']:.3f} s; export {sec['export']:.3f} s + eval "
+              f"{sec['eval']:.3f} s = {sec['export'] + sec['eval']:.3f} s",
+              flush=True)
+        n_pos = len(config["dataset"]["position_model"]) + 1
+        if launches != n_pos * CLI_SCENES:
+            raise AssertionError(f"expected {n_pos * CLI_SCENES} detection-"
+                                 f"map launches, counted {launches}")
+        results_dir = get_inference_path(config["model_name"],
+                                         "synth_smoke", "val")
+        for r in model.results.values():
+            assert r.stopped and r.supersteps == 341, (r.supersteps,
+                                                       r.stopped)
+        for i in range(CLI_SCENES):
+            assert os.path.exists(os.path.join(results_dir,
+                                               f"{i:04}_results.pkl"))
+        assert not os.path.exists(os.path.join(results_dir,
+                                               "batched_chains.ck.npz"))
+        aps = {}
+        for postfix in ("", "-SV"):
+            dota = os.path.join(results_dir, "dota" + postfix)
+            for sub in ("det/vehicle.txt", "imageSet.txt") + tuple(
+                    f"gt/{i:04}.txt" for i in range(CLI_SCENES)):
+                assert os.path.exists(os.path.join(dota, sub)), sub
+            for iou in (0.05, 0.1, 0.25, 0.5, 0.75):
+                with open(os.path.join(dota, f"metrics{iou:.2f}.json")) as f:
+                    aps[postfix, iou] = json.load(f)["vehicle"]["ap"]
+        assert np.isfinite(list(aps.values())).all(), aps
+        n_det = sum(len(r.scores) for r in model.results.values())
+        print(f"  {launches} detection-map launches ({n_pos} per scene); "
+              f"{n_det} detections over {CLI_SCENES} scenes; AP@0.05 "
+              f"{aps['', 0.05]:.4f} (SV {aps['-SV', 0.05]:.4f}), AP@0.5 "
+              f"{aps['', 0.5]:.4f} (SV {aps['-SV', 0.5]:.4f})", flush=True)
+        return launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root)
 
 
 def unet_reference_check(pos_model, device):
@@ -409,17 +589,20 @@ def run(args, device: str = "cuda:0") -> int:
     phase("4 chain", t0)
 
     t0 = time.perf_counter()
-    final = mpp_model.final_detections(result)
     scores = result.scores
     assert np.isfinite(scores).all() and (scores > 0).all()
     print(f"  scores: {len(scores)} detections (papangelou min "
           f"{scores.min() if len(scores) else 0:.4f} max "
-          f"{scores.max() if len(scores) else 0:.4f}); {len(final['scores'])}"
-          f" after NMS; {len(gt_centers)} objects painted", flush=True)
+          f"{scores.max() if len(scores) else 0:.4f}); {len(gt_centers)} "
+          f"objects painted", flush=True)
     phase("5 scores", t0)
-    launches = dk.KERNEL.launches
-    if launches == 0:
+    if dk.KERNEL.launches == 0:
         raise AssertionError("the main path launched no detection-map kernel")
+
+    # ---- 6. the command line on a dataset, counts from 0
+    t0 = time.perf_counter()
+    launches = cli_phase(config, device, args.seed)
+    phase("6 CLI infereval on a dataset", t0)
 
     k_ms, host_ms, p_ms, bound = main_path_kernel_times(device, args.seed)
     print(f"  time of the main-path launch (8 views of {HEIGHT}x{WIDTH}, "

@@ -1,0 +1,111 @@
+"""Command line of the PyTorch port, with ``main.py``'s flags::
+
+    python -m mpp_cnn_rs_object_detection_torch -m {posnet,shapenet,mpp} \
+        -p {infer,eval,infereval} -c CONFIG [-d DATASET] [-o] [-r] [-s SUBSET]
+    python -m mpp_cnn_rs_object_detection_torch -p make_synth [-c CONFIG]
+
+It runs on the CUDA device; ``main(argv, device="cpu")`` runs it on the
+CPU. Procedures and models of ``main.py`` that the port does not have raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+
+# procedures and models of main.py that are not ported -> ROADMAP.md item
+_NOT_PORTED_PROCEDURES = {"train": "9 (MPP) and 12 (CNNs)",
+                          "data_preview": "16", "translate_dota": "16",
+                          "translate_cowc": "16", "check_div": "16"}
+_NOT_PORTED_MODELS = {"oracle": "14", "fasterrcnn": "14", "bbavec": "14"}
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        description="MPP+CNN detector, PyTorch port")
+    parser.add_argument("-m", "--model", type=str, required=False,
+                        choices=["posnet", "shapenet", "mpp", "oracle",
+                                 "fasterrcnn", "bbavec"])
+    parser.add_argument("-p", "--procedure", type=str, required=True,
+                        choices=["train", "infer", "eval", "infereval",
+                                 "data_preview", "translate_dota",
+                                 "translate_cowc", "make_synth", "check_div"])
+    parser.add_argument("-c", "--config", type=str, required=False,
+                        help="config file path, config name, or saved "
+                             "model name")
+    parser.add_argument("-d", "--dataset", type=str, default=None,
+                        help="override the config's dataset")
+    parser.add_argument("-o", "--overwrite", action="store_true")
+    parser.add_argument("-r", "--resume", action="store_true",
+                        help="load the saved model and resume")
+    parser.add_argument("-s", "--subset", type=str, default="val")
+    return parser.parse_args(argv)
+
+
+def load_config(args) -> dict:
+    from mpp_cnn_rs_object_detection_torch.utils.config import (
+        resolve_model_config_path,
+    )
+
+    with open(resolve_model_config_path(args.config)) as f:
+        return json.load(f)
+
+
+def main(argv=None, device=None):
+    """Run one procedure; returns the model it built (None for
+    ``make_synth``). ``device`` defaults to the CUDA device."""
+    args = parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    if args.procedure in _NOT_PORTED_PROCEDURES:
+        raise NotImplementedError(
+            f"procedure {args.procedure} is not ported (ROADMAP.md item "
+            f"{_NOT_PORTED_PROCEDURES[args.procedure]})")
+    if args.procedure == "make_synth":
+        from mpp_cnn_rs_object_detection_torch.data.synth import (
+            make_synth_dataset,
+        )
+
+        make_synth_dataset(**(load_config(args) if args.config else {}))
+        return None
+
+    assert args.model is not None, "-m/--model required for this procedure"
+    if args.model in _NOT_PORTED_MODELS:
+        raise NotImplementedError(
+            f"model {args.model} is not ported (ROADMAP.md item "
+            f"{_NOT_PORTED_MODELS[args.model]})")
+    config = load_config(args)
+    if args.model == "posnet":
+        from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
+            PosNetModel,
+        )
+
+        model = PosNetModel(config, device, load=True, dataset=args.dataset,
+                            overwrite=args.overwrite)
+    elif args.model == "shapenet":
+        from mpp_cnn_rs_object_detection_torch.models.shapenet_model import (
+            ShapeNetModel,
+        )
+
+        model = ShapeNetModel(config, device, load=True,
+                              dataset=args.dataset, overwrite=args.overwrite)
+    else:
+        from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import MPPModel
+
+        model = MPPModel(config, overwrite=args.overwrite, load=True,
+                         dataset=args.dataset, device=device)
+
+    if args.procedure == "infer":
+        model.infer(subset=args.subset, overwrite=args.overwrite)
+    elif args.procedure == "eval":
+        model.eval()
+    else:
+        model.infer(subset=args.subset, overwrite=args.overwrite)
+        model.eval()
+    return model
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

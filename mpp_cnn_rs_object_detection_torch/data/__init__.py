@@ -1,2 +1,1 @@
-"""Synthetic scenes for checks and smoke runs (the dataset layer is not
-ported yet)."""
+"""Synthetic scenes and datasets, and rectangle rasterisation."""

@@ -1,16 +1,44 @@
-"""Synthetic vehicle-like scenes made with numpy from a seed.
+"""Synthetic scenes and datasets made with numpy from a seed.
 
-A textured gray background with small dark or bright oriented rectangles
-(size ~8 px, ratio ~0.5, any angle) that do not overlap, in the spirit of
-``mpp_cnn_rs_object_detection_tpu/data/synth.py`` but without PIL or files:
-the image and its ground truth stay in memory.
+``synthetic_scene``: a textured gray background with small dark or bright
+oriented rectangles that do not overlap; the image and its ground truth stay
+in memory.
+
+``make_synth`` / ``make_synth_dataset``: counterparts of
+``mpp_cnn_rs_object_detection_tpu/data/synth.py``. The same seed draws the
+same rectangles and paints the same image, and the dataset is written in the
+standard layout (``images/NNNN.png``, ``annotations/NNNN.pkl``,
+``metadata/NNNN.json`` per subset) with the port's PNG codec. The polygons
+are float32, so an annotation's ``parameters`` agree with the JAX
+package's to float32 rounding of the trigonometry.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+import os
+import pickle
+from typing import List, Tuple
 
 import numpy as np
+import torch
+from numpy.random import Generator
+
+from mpp_cnn_rs_object_detection_torch.data.label_processing import rect_mask
+from mpp_cnn_rs_object_detection_torch.ops.geometry import (
+    convex_quad_intersection_area,
+    marks_to_poly,
+    polygon_to_abw,
+    sra_to_wla,
+)
+from mpp_cnn_rs_object_detection_torch.utils.config import (
+    get_dataset_base_path,
+)
+from mpp_cnn_rs_object_detection_torch.utils.files import (
+    NumpyEncoder,
+    make_if_not_exist,
+)
+from mpp_cnn_rs_object_detection_torch.utils.png import write_png
 
 
 def synthetic_scene(h: int, w: int, n_objects: int, seed: int = 0
@@ -54,3 +82,95 @@ def synthetic_scene(h: int, w: int, n_objects: int, seed: int = 0
     return (np.clip(image, 0.0, 1.0),
             np.asarray(centers, np.float32).reshape(-1, 2),
             np.asarray(marks, np.float32).reshape(-1, 3))
+
+
+def _poly(c: dict) -> np.ndarray:
+    """The candidate's float32 polygon (``marks_to_poly``)."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    return marks_to_poly(f32([c["x"], c["y"]]), f32(c["size"]),
+                         f32(c["ratio"]), f32(c["angle"])).numpy()
+
+
+def make_synth(rng: Generator, shape: Tuple[int, int], n_rect: int,
+               noise: float):
+    """Random non-overlapping rectangles painted on a noisy gray background.
+
+    Returns (image (H, W, 3) float, list of candidate dicts with x, y, size,
+    ratio and angle, their (4, 2) polygons)."""
+    shape = tuple(int(s) for s in shape)
+    cand = [
+        dict(
+            x=int(rng.integers(0, shape[0])),
+            y=int(rng.integers(0, shape[1])),
+            size=float(rng.normal(8, 1.0)),
+            ratio=float(np.clip(rng.normal(0.5, 0.1), 0.1, 1)),
+            angle=float(rng.uniform(0, np.pi)),
+        )
+        for _ in range(n_rect)
+    ]
+    valid: List[dict] = []
+    valid_polys: List[np.ndarray] = []
+    for c in cand:
+        p = _poly(c)
+        if valid_polys:
+            inter = convex_quad_intersection_area(
+                torch.from_numpy(p)[None],
+                torch.from_numpy(np.stack(valid_polys)))
+            if bool((inter != 0).any()):
+                continue
+        valid.append(c)
+        valid_polys.append(p)
+
+    image = np.ones(shape + (3,)) * 0.5
+    for c in valid:
+        a, b, _ = sra_to_wla(c["size"], c["ratio"], c["angle"])
+        # poly_coord quirk: drawn rect uses (length, width, angle + pi/2)
+        mask = rect_mask(shape, (c["x"], c["y"]), b, a, c["angle"] + np.pi / 2,
+                         window=int(np.ceil(np.hypot(a, b) / 2)) + 1)
+        image[mask] = rng.choice([0, 1.0]) + rng.normal(0, 0.1)
+    image = np.clip(image, 0, 1)
+    image = np.clip(image + rng.normal(0, noise, size=image.shape), 0, 1)
+    return image, valid, valid_polys
+
+
+def make_synth_dataset(name: str = "synth_01", n_items: int = 32,
+                       shape: Tuple[int, int] = (256, 256), n_rect: int = 230,
+                       noise: float = 0.02, seed: int = 0,
+                       base_dir: str = None) -> str:
+    dest_base = base_dir if base_dir is not None else get_dataset_base_path()
+    save_dir = os.path.join(dest_base, name)
+    make_if_not_exist(save_dir, recursive=True)
+
+    rng = np.random.default_rng(seed)
+    for ss in ["train", "val"]:
+        subset_dir = os.path.join(save_dir, ss)
+        make_if_not_exist(subset_dir)
+        make_if_not_exist([os.path.join(subset_dir, s)
+                           for s in ["images", "annotations", "metadata"]])
+        for image_id in range(n_items):
+            image, rects, polys = make_synth(rng, shape, n_rect, noise=noise)
+            centers = np.array([[r["x"], r["y"]] for r in rects])
+            parameters = np.array([polygon_to_abw(p) for p in polys])
+            categories = np.array(["vehicle"] * len(rects))
+            difficult = np.array([False] * len(rects))
+
+            write_png(os.path.join(subset_dir, "images", f"{image_id:04}.png"),
+                      (image * 255).astype(np.uint8))
+            with open(os.path.join(subset_dir, "annotations",
+                                   f"{image_id:04}.pkl"), "wb") as f:
+                pickle.dump(
+                    {
+                        "centers": centers,
+                        "parameters": parameters,
+                        "categories": categories,
+                        "difficult": difficult,
+                    },
+                    f,
+                )
+            with open(os.path.join(subset_dir, "metadata",
+                                   f"{image_id:04}.json"), "w") as f:
+                json.dump(
+                    {"shape": list(image.shape), "n_objects": len(rects)},
+                    f, cls=NumpyEncoder, indent=1,
+                )
+    return save_dir

@@ -1,17 +1,20 @@
-"""Checkpoint loading: a msgpack reader for flax checkpoints and the
-flax -> torch parameter conversion.
+"""Checkpoints: a msgpack reader and writer for flax checkpoints and the
+flax <-> torch parameter conversion.
 
 The JAX package writes ``model.msgpack`` with ``flax.serialization.to_bytes``
 (``models/train_utils.py:save_checkpoint``): msgpack maps of str keys whose
 leaves are ndarrays packed as ext type 1 (``(shape, dtype name, bytes)``),
 numpy scalars as ext type 3, and Python ints. The reader below decodes that
 subset of msgpack (map, array, str, bin, int, float, nil, bool, ext) without
-the ``msgpack`` package, which the GPU host lacks. Weights are converted in
-memory at load; nothing converted is written to disk.
+the ``msgpack`` package, which the GPU host lacks. The writer is its inverse
+and packs a tree the way ``flax.serialization.to_bytes`` does. Weights are
+converted in memory.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import struct
 from typing import Any, Dict
 
@@ -130,9 +133,135 @@ def read_msgpack(data: bytes) -> Any:
     return _unchunk(tree)
 
 
+def latest_checkpoint(save_path: str) -> str:
+    """``model.msgpack`` of a model directory, else its newest
+    ``checkpoint_NNNN.msgpack``; raises when there is neither."""
+    model_file = os.path.join(save_path, "model.msgpack")
+    if os.path.exists(model_file):
+        return model_file
+    ckpts = sorted(glob.glob(os.path.join(save_path, "checkpoint_*.msgpack")))
+    if not ckpts:
+        raise FileNotFoundError(f"no checkpoint in {save_path}")
+    return ckpts[-1]
+
+
 def read_checkpoint(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         return read_msgpack(f.read())
+
+
+class _Writer:
+    def __init__(self):
+        self.parts = []
+
+    def pack(self, fmt: str, *values) -> None:
+        self.parts.append(struct.pack(fmt, *values))
+
+    def header(self, n: int, fix: int, fix_max: int, codes) -> None:
+        """A fixed-size header for small ``n``, else the narrowest of
+        ``codes`` = ((byte, struct format, max), ...)."""
+        if n <= fix_max:
+            self.pack(">B", fix | n)
+            return
+        for byte, fmt, top in codes:
+            if n <= top:
+                self.pack(">B" + fmt[1:], byte, n)
+                return
+        raise ValueError(f"msgpack: length {n} too large")
+
+    def value(self, v: Any) -> None:
+        if v is None:
+            self.pack(">B", 0xC0)
+        elif isinstance(v, (bool, np.bool_)):
+            self.pack(">B", 0xC3 if v else 0xC2)
+        elif isinstance(v, int):
+            self.integer(v)
+        elif isinstance(v, float):
+            self.pack(">Bd", 0xCB, v)
+        elif isinstance(v, str):
+            raw = v.encode("utf-8")
+            self.header(len(raw), 0xA0, 31, ((0xD9, ">B", 0xFF),
+                                            (0xDA, ">H", 0xFFFF),
+                                            (0xDB, ">I", 0xFFFFFFFF)))
+            self.parts.append(raw)
+        elif isinstance(v, (bytes, bytearray)):
+            self.header(len(v), 0, -1, ((0xC4, ">B", 0xFF),
+                                        (0xC5, ">H", 0xFFFF),
+                                        (0xC6, ">I", 0xFFFFFFFF)))
+            self.parts.append(bytes(v))
+        elif isinstance(v, dict):
+            self.header(len(v), 0x80, 15, ((0xDE, ">H", 0xFFFF),
+                                           (0xDF, ">I", 0xFFFFFFFF)))
+            for k in sorted(v):  # flax packs a dict's keys in sorted order
+                self.value(k)
+                self.value(v[k])
+        elif isinstance(v, (list, tuple)):
+            self.header(len(v), 0x90, 15, ((0xDC, ">H", 0xFFFF),
+                                           (0xDD, ">I", 0xFFFFFFFF)))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, np.ndarray):
+            self.ext(_EXT_NDARRAY, _ndarray_payload(v))
+        elif isinstance(v, np.generic):
+            self.ext(_EXT_NPSCALAR, _ndarray_payload(np.asarray(v)))
+        else:
+            raise TypeError(f"msgpack: cannot pack {type(v).__name__}")
+
+    def integer(self, v: int) -> None:
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            self.pack(">b" if v < 0 else ">B", v)
+            return
+        codes = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) \
+            if v > 0 else ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"),
+                           (0xD3, ">q"))
+        for byte, fmt in codes:
+            bits = 8 * struct.calcsize(fmt)
+            lo, hi = (0, 2 ** bits - 1) if v > 0 else (-2 ** (bits - 1), -1)
+            if lo <= v <= hi:
+                self.pack(">B" + fmt[1:], byte, v)
+                return
+        raise ValueError(f"msgpack: integer {v} out of range")
+
+    def ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            self.pack(">Bb", fixext[n], code)
+        else:
+            for byte, fmt, top in ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                                   (0xC9, ">I", 0xFFFFFFFF)):
+                if n <= top:
+                    self.pack(">B" + fmt[1:] + "b", byte, n, code)
+                    break
+        self.parts.append(payload)
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    """flax's ndarray ext payload: msgpack ``(shape, dtype name, bytes)``."""
+    w = _Writer()
+    w.value((tuple(int(d) for d in arr.shape), arr.dtype.name,
+             np.ascontiguousarray(arr).tobytes()))
+    return b"".join(w.parts)
+
+
+def write_msgpack(tree: Any) -> bytes:
+    """Encode a tree of str-keyed dicts, numpy arrays and scalars as
+    ``flax.serialization.to_bytes`` does (so flax and the reader above
+    restore it)."""
+    w = _Writer()
+    w.value(tree)
+    return b"".join(w.parts)
+
+
+def write_checkpoint(path: str, params: Dict[str, Any],
+                     batch_stats: Dict[str, Any], epoch: int = 0) -> None:
+    """Write ``{"params", "batch_stats", "epoch"}`` (numpy leaves) to
+    ``path``; the JAX package's checkpoint loader and ``read_checkpoint``
+    restore it."""
+    data = write_msgpack({"params": params, "batch_stats": batch_stats,
+                          "epoch": int(epoch)})
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):
@@ -177,3 +306,38 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd.setdefault(f"{parent}.num_batches_tracked",
                       torch.zeros((), dtype=torch.long))
     return sd
+
+
+def _nest(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
+    *parents, leaf = path.split(".")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: a torch state_dict -> flax
+    ``{"params": ..., "batch_stats": ...}`` with float32 numpy leaves."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        parent, leaf = key.rsplit(".", 1)
+        module = parent.rsplit(".", 1)[-1]
+        arr = t.detach().cpu().float().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            _nest(stats, f"{parent}.{leaf[len('running_'):]}", arr.copy())
+        elif leaf == "bias":
+            _nest(params, f"{parent}.bias", arr.copy())
+        elif leaf == "weight" and arr.ndim == 4:
+            if module.startswith("ConvTranspose"):
+                kernel = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                kernel = arr.transpose(2, 3, 1, 0)
+            _nest(params, f"{parent}.kernel", np.ascontiguousarray(kernel))
+        elif leaf == "weight":
+            _nest(params, f"{parent}.scale", arr.copy())
+        else:
+            raise ValueError(f"unexpected parameter {key}")
+    return {"params": params, "batch_stats": stats}

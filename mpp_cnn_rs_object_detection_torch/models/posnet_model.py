@@ -2,27 +2,46 @@
 
 Counterpart of the inference part of
 ``mpp_cnn_rs_object_detection_tpu/models/posnet_model.py`` (``infer_on_image``,
-``vec2detection_map``, ``detection_map_on_image``). Images are (H, W, 3)
-float tensors in [0, 1]; maps keep the JAX package's layout ((H, W) mask,
-(H, W, 2) vectors). Both detection-map branches -- the DivClassifier head
-and ``clip(-div/2, 0, 1) * mask`` -- go through the CUDA stencil kernel on a
-GPU tensor (``ops/detection_kernel.py``), which takes the 8 TTA views' head
+``vec2detection_map``, ``detection_map_on_image``, and at dataset level
+``infer`` and ``eval``). Images are (H, W, 3) float tensors in [0, 1]; maps
+keep the JAX package's layout ((H, W) mask, (H, W, 2) vectors). Both
+detection-map branches -- the DivClassifier head and
+``clip(-div/2, 0, 1) * mask`` -- go through the CUDA stencil kernel on a GPU
+tensor (``ops/detection_kernel.py``), which takes the 8 TTA views' head
 outputs in one launch.
+
+A model built with ``load=True`` lives in the model store
+(``utils/config.py:startup_config``) and reads its newest checkpoint there;
+``infer(subset)`` writes the JAX package's result pickles, detection-map
+PNGs and DOTA HBB translation, and replays existing pickles on resume.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
+import pickle
+import re
+import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mpp_cnn_rs_object_detection_torch.device import resolve_device
+from mpp_cnn_rs_object_detection_torch.metrics.dota_eval import dota_eval
+from mpp_cnn_rs_object_detection_torch.metrics.dota_writer import (
+    DOTAResultsTranslator,
+)
+from mpp_cnn_rs_object_detection_torch.models.base import BaseModel
 from mpp_cnn_rs_object_detection_torch.models.checkpoint import (
+    latest_checkpoint,
     params_from_jax,
+    params_to_jax,
     read_checkpoint,
+    write_checkpoint,
 )
 from mpp_cnn_rs_object_detection_torch.models.unet import (
     DivClassifier,
@@ -38,8 +57,49 @@ from mpp_cnn_rs_object_detection_torch.ops.dihedral import (
     D4_ELEMENTS,
     transform_image,
 )
+from mpp_cnn_rs_object_detection_torch.ops.nms import nms_distance
+from mpp_cnn_rs_object_detection_torch.utils.config import (
+    fetch_data_paths,
+    get_inference_path,
+    startup_config,
+)
+from mpp_cnn_rs_object_detection_torch.utils.files import (
+    load_results,
+    make_if_not_exist,
+)
+from mpp_cnn_rs_object_detection_torch.utils.png import (
+    read_unit_image,
+    save_unit_image,
+)
 
 PATCH_SIZE = 512
+SECONDS_KEYS = ("cnn", "host", "nms", "decode")
+ID_RE = re.compile(r"[^0-9]*([0-9]+).*\.png")
+
+
+def image_id(path: str) -> int:
+    """The numeric id of a dataset image file name."""
+    return int(ID_RE.match(os.path.split(path)[1]).group(1))
+
+
+def open_store(model, config: Dict, kind: str, load: bool,
+               dataset: Optional[str], overwrite: bool) -> Dict:
+    """Bind ``model`` to its model-store directory when ``load`` (the
+    config is frozen there and the newest checkpoint is read after the
+    networks exist); returns the config to build from."""
+    model.save_path, model.logger = None, None
+    if load:
+        config, model.logger, model.save_path = startup_config(
+            config, kind, load_model=True, overwrite=overwrite)
+    model.dataset = dataset or (config.get("data_loader") or {}).get(
+        "dataset")
+    # seconds of dataset inference: U-Net forwards and the detection-map
+    # kernel ("cnn", synchronised), and the host's share ("host": image
+    # decoding, candidate selection, NMS, mark decoding and the exports),
+    # of which the distance NMS ("nms") and the ShapeNet's mark decoding
+    # ("decode")
+    model.seconds = dict.fromkeys(SECONDS_KEYS, 0.0)
+    return config
 
 
 def net_dtype(config: Dict) -> torch.dtype:
@@ -84,10 +144,12 @@ def infer_chunked(image: torch.Tensor, forward) -> List[torch.Tensor]:
     return outs
 
 
-class PosNetModel:
+class PosNetModel(BaseModel):
     """Inference wrapper around a PosNet (+ DivClassifier head)."""
 
-    def __init__(self, config: Dict, device=None):
+    def __init__(self, config: Dict, device=None, load: bool = False,
+                 dataset: Optional[str] = None, overwrite: bool = False):
+        config = open_store(self, config, "posnet", load, dataset, overwrite)
         self.config = config
         self.device = resolve_device(device)
         self.use_div_clf = bool(config.get("div_clf_model"))
@@ -98,6 +160,8 @@ class PosNetModel:
         self.div_clf = (_inference_module(DivClassifier(), self.device)
                         if self.use_div_clf else None)
         self._clf_wb: Optional[Tuple[float, float]] = None
+        if load:
+            self.load_checkpoint(latest_checkpoint(self.save_path))
 
     @classmethod
     def from_model_dir(cls, model_dir: str, device=None):
@@ -120,6 +184,17 @@ class PosNetModel:
     def load_checkpoint(self, path: str) -> None:
         ck = read_checkpoint(path)
         self.load_variables(ck["params"], ck["batch_stats"])
+
+    def save(self) -> None:
+        """``model.msgpack`` in the model's store directory (the inverse of
+        ``load_checkpoint``)."""
+        net = params_to_jax(self.net.state_dict())
+        params = {"net": net["params"]}
+        if self.div_clf is not None:
+            params["div"] = params_to_jax(self.div_clf.state_dict())["params"]
+        write_checkpoint(os.path.join(self.save_path, "model.msgpack"),
+                         params, net["batch_stats"],
+                         epoch=self.config["trainer"]["n_epochs"])
 
     @torch.no_grad()
     def head_planes(self, image: torch.Tensor) -> torch.Tensor:
@@ -170,3 +245,96 @@ class PosNetModel:
                               tuple(img_t.shape[:2]), (k, flip)))
         return detection_map_tta(views, tuple(image.shape[:2]),
                                  mask_is_logit=True, **self._epilogue())
+
+    # ------------------------------------------------------------ dataset
+
+    def infer(self, subset: str, min_confidence: float = 0.1, overwrite=True,
+              **kwargs):
+        """Detection maps of the subset's images -> ``NNNN_results.pkl``
+        (every map pixel above ``min_confidence`` as a candidate center),
+        ``NNNN_detection_map.png`` and the DOTA HBB translation of the
+        candidates after a 6 px distance NMS (12 px boxes)."""
+        results_dir = get_inference_path(
+            model_name=os.path.split(self.save_path)[1],
+            dataset=self.dataset, subset=subset)
+        make_if_not_exist(results_dir, recursive=True)
+        dota_trlt = DOTAResultsTranslator(
+            self.dataset, subset, results_dir, "hbb", all_classes=["vehicle"])
+        paths_dict = fetch_data_paths(self.dataset, subset=subset,
+                                      metadata=False)
+
+        for pf, af in zip(paths_dict["images"], paths_dict["annotations"]):
+            t_host = time.perf_counter()
+            patch_id = image_id(pf)
+            out_pkl = os.path.join(results_dir, f"{patch_id:04}_results.pkl")
+            replay = os.path.exists(out_pkl) and not overwrite
+            with open(af, "rb") as f:
+                labels_dict = pickle.load(f)
+            centers = labels_dict["centers"]
+
+            if replay:
+                # resume: replay the existing result pickle into the freshly
+                # rewritten DOTA translation
+                logging.info(f"{out_pkl} exists, replaying into translations")
+                prev = load_results(out_pkl)
+                detection_map = prev["detection_map"]
+                det_centers = np.asarray(prev["detection"]).reshape(-1, 2)
+                det_scores = np.asarray(prev["detection_score"]).reshape(-1)
+            else:
+                img = read_unit_image(pf)
+                t_cnn = time.perf_counter()
+                detection_map = self.detection_map_on_image(img)
+                detection_map = detection_map.cpu().numpy()
+                dt = time.perf_counter() - t_cnn
+                self.seconds["cnn"] += dt
+                t_host += dt
+                det_centers = np.array(
+                    np.where(detection_map > min_confidence)).T
+                det_scores = detection_map[det_centers[:, 0],
+                                           det_centers[:, 1]]
+            t_nms = time.perf_counter()
+            nms_centers, nms_scores = nms_distance(det_centers, det_scores,
+                                                   threshold=6)
+            self.seconds["nms"] += time.perf_counter() - t_nms
+            logging.info(f"image {patch_id}: {len(det_scores)} candidates, "
+                         f"{len(nms_scores)} after the distance NMS")
+
+            s1, s2 = 6, 6
+            nc = np.asarray(nms_centers).reshape(-1, 2)
+            nms_boxes = np.stack([nc[:, 1] - s1, nc[:, 0] - s1,
+                                  nc[:, 1] + s2, nc[:, 0] + s2], axis=-1)
+            gc = np.asarray(centers).reshape(-1, 2)
+            gt_boxes = np.stack([gc[:, 1] - s1, gc[:, 0] - s1,
+                                 gc[:, 1] + s2, gc[:, 0] + s2], axis=-1)
+            gt_poly = np.stack([gt_boxes[:, [0, 1]], gt_boxes[:, [2, 1]],
+                                gt_boxes[:, [2, 3]], gt_boxes[:, [0, 3]]],
+                               axis=1)
+
+            dota_trlt.add_gt(
+                image_id=patch_id, polygons=gt_poly,
+                difficulty=labels_dict["difficult"], flip_coor=False,
+                categories=["vehicle"] * len(gt_poly))
+            dota_trlt.add_detections(
+                image_id=patch_id, scores=nms_scores, bbox=nms_boxes,
+                flip_coor=False, class_names=["vehicle"] * len(nms_scores))
+            if not replay:
+                with open(out_pkl, "wb") as f:
+                    pickle.dump(
+                        {
+                            "detection": det_centers,
+                            "detection_score": det_scores,
+                            "detection_type": "center",
+                            "detection_map": detection_map,
+                        },
+                        f,
+                    )
+                save_unit_image(os.path.join(
+                    results_dir, f"{patch_id:04}_detection_map.png"),
+                    detection_map)
+            self.seconds["host"] += time.perf_counter() - t_host
+        dota_trlt.save()
+        logging.info("saved DOTA translations")
+
+    def eval(self):
+        dota_eval(model_dir=self.save_path, dataset=self.dataset,
+                  subset="val", det_type="hbb")

@@ -1,18 +1,27 @@
 """ImageWMaps: the CNN -> MPP data contract.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/image_data.py``
-(``ImageWMaps``). The maps may be numpy arrays or torch
-tensors; exact-scene inference moves them to its device once.
+(``ImageWMaps``, ``labels_to_marks``, ``load_image_w_maps``; cropping,
+splitting and merging are not ported). The maps may be numpy arrays or
+torch tensors; exact-scene inference moves them to its device once.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from mpp_cnn_rs_object_detection_torch.ops.mappings import ValueMapping
+from mpp_cnn_rs_object_detection_torch.utils.config import (
+    get_dataset_base_path,
+    get_inference_path,
+)
+from mpp_cnn_rs_object_detection_torch.utils.files import load_results
+from mpp_cnn_rs_object_detection_torch.utils.png import read_unit_image
 
 PARAM_NAMES = ["size", "ratio", "angle"]
 
@@ -30,3 +39,50 @@ class ImageWMaps:
     gt_marks: np.ndarray           # (N, 3) size/ratio/angle
     param_names: List[str] = field(default_factory=lambda: list(PARAM_NAMES))
     crop_data: Optional[Dict] = None
+
+
+def labels_to_marks(labels: Dict) -> Tuple[np.ndarray, np.ndarray]:
+    """annotation dict -> (centers (N, 2), marks (N, 3)): (a, b, w) ->
+    (size, ratio, angle)."""
+    centers = np.asarray(labels["centers"], np.float32).reshape(-1, 2)
+    params = np.asarray(labels["parameters"], np.float32).reshape(-1, 3)
+    if len(params) == 0:
+        return centers, np.zeros((0, 3), np.float32)
+    a, b, w = params[:, 0], params[:, 1], params[:, 2]
+    marks = np.stack([(a + b) / 2.0, a / b, w % np.pi], axis=-1)
+    return centers, marks.astype(np.float32)
+
+
+def load_image_w_maps(patch_id, dataset: str, subset: str, position_model,
+                      shape_model: str) -> ImageWMaps:
+    """Assemble an image's ImageWMaps from the PosNet/ShapeNet result
+    pickles (either package's: ``utils/files.py:load_results``). A list of
+    position models has its detection maps max-combined pixelwise."""
+    patch_id = int(patch_id)
+    base = os.path.join(get_dataset_base_path(), dataset, subset)
+    image = read_unit_image(os.path.join(base, "images", f"{patch_id:04}.png"))
+    with open(os.path.join(base, "annotations", f"{patch_id:04}.pkl"),
+              "rb") as f:
+        labels = pickle.load(f)
+
+    pos_models = (position_model if isinstance(position_model, (list, tuple))
+                  else [position_model])
+    detection_map = None
+    for pm in pos_models:
+        m = load_results(os.path.join(get_inference_path(pm, dataset, subset),
+                                      f"{patch_id:04}_results.pkl"))
+        m = m["detection_map"]
+        detection_map = m if detection_map is None else np.maximum(
+            detection_map, m)
+    shp = load_results(os.path.join(
+        get_inference_path(shape_model, dataset, subset),
+        f"{patch_id:04}_results.pkl"))
+    param_dist_maps = [np.moveaxis(p[0], 0, -1) for p in shp["output"]]
+
+    centers, marks = labels_to_marks(labels)
+    return ImageWMaps(
+        image=image, name=f"{patch_id:04}", shape=image.shape[:2],
+        detection_map=detection_map, param_dist_maps=param_dist_maps,
+        mappings=shp["mappings"], labels=labels, gt_centers=centers,
+        gt_marks=marks,
+    )

@@ -1,27 +1,49 @@
-"""Scene inference facade: image -> CNN maps -> exact chain -> scores.
+"""The MPP facade: image -> CNN maps -> exact chain -> scores -> DOTA.
 
-Counterpart of the exact-scene inference path of
-``mpp_cnn_rs_object_detection_tpu/mpp/mpp_model.py`` (``MPPModel.infer``)
-on in-memory images: the PosNet detection maps (8-way TTA each,
-max-combined across position models) and the ShapeNet mark distributions
-form an ``ImageWMaps``; the configured energy setup, calibration and learned
-combiner turn it into energy maps; one exact cell-parallel chain runs per
-scene; the final configuration is scored by its papangelou intensities and
-deduplicated with a distance NMS. Dataset IO, DOTA export and evaluation are
-not ported.
+Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/mpp_model.py`` on its
+exact-scene path:
+
+  - ``MPPModel(config, load=True)`` reads the trained combiner and the
+    calibration from the model store; ``infer(subset)`` runs the CNN
+    inference the dataset lacks (``ensure_cnn_inference``), assembles each
+    image's maps from the result pickles, runs the exact chains (all pending
+    scenes at one shared bucket with ``batch_scenes``, with the segment
+    checkpoint and the config's stopping block), and exports every scored
+    point of the final configurations as they come -- scores divided by
+    ``max_score``, no NMS -- to ``NNNN_results.pkl`` and the DOTA OBB
+    translations (plain, and ``-SV`` with large vehicles difficult);
+    ``eval()`` computes AP at each IoU threshold;
+  - ``SceneInference`` runs the same models on in-memory images.
+
+Not ported: calibration and weight training (``ROADMAP.md`` item 9), the
+tiled scene mode (item 10), the default-off scoring extensions and restarts
+(item 11), the meshes (item 15) and the detection/GT overlay PNGs (item
+16); a config that turns one on raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
+import pickle
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mpp_cnn_rs_object_detection_torch.device import resolve_device
-from mpp_cnn_rs_object_detection_torch.models.posnet_model import PosNetModel
+from mpp_cnn_rs_object_detection_torch.metrics.dota_eval import dota_eval
+from mpp_cnn_rs_object_detection_torch.metrics.dota_writer import (
+    DOTAResultsTranslator,
+)
+from mpp_cnn_rs_object_detection_torch.models.base import BaseModel
+from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
+    SECONDS_KEYS,
+    PosNetModel,
+    image_id,
+)
 from mpp_cnn_rs_object_detection_torch.models.shapenet_model import (
     ShapeNetModel,
 )
@@ -33,21 +55,45 @@ from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import (
     EnergySetup,
     make_energy_setup,
 )
-from mpp_cnn_rs_object_detection_torch.mpp.image_data import ImageWMaps
+from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
+    ImageWMaps,
+    load_image_w_maps,
+)
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import RJMCMCParams
 from mpp_cnn_rs_object_detection_torch.mpp.scene import (
     SceneResult,
     run_exact_scenes_batched,
 )
-from mpp_cnn_rs_object_detection_torch.ops.nms import nms_distance
+from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
+    stopping_from_config,
+)
+from mpp_cnn_rs_object_detection_torch.ops.geometry import rect_to_poly_np
+from mpp_cnn_rs_object_detection_torch.utils.config import (
+    fetch_data_paths,
+    get_inference_path,
+    get_model_base_path,
+    resolve_model_config_path,
+    startup_config,
+)
+from mpp_cnn_rs_object_detection_torch.utils.files import (
+    load_results,
+    make_if_not_exist,
+)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MODELS_ROOT = os.path.join(REPO_ROOT, "artifacts", "models_storage")
 CONFIG_DIR = os.path.join(REPO_ROOT, "model_configs", "mpp")
-# detections of one scene closer than this are duplicates (the reference's
-# patch-merge distance); the one with the higher papangelou score is kept
-NMS_DISTANCE = 3.0
+# config switches of the JAX MPPModel.infer that the port does not have,
+# with the value that leaves them off and the ROADMAP.md item that ports them
+_INFERENCE_OFF = {
+    "refine_centers": (False, 11), "score_map_blend": (0.0, 11),
+    "backfill_threshold": (0.0, 11), "restarts": (1, 11),
+    "polish_steps": (0, 11), "scene_mesh": (False, 15),
+    "batch_mesh": (False, 15),
+}
+_RJMCMC_OFF = {"superstep_split_merge": (False, 11),
+               "superstep_move_switch": (False, 11)}
 
 
 def load_mpp_config(name: str) -> Dict:
@@ -130,43 +176,269 @@ class SceneInference:
 
     def run_scenes(self, datas: List[ImageWMaps], seeds: Sequence[int],
                    max_segments: Optional[int] = None) -> List[SceneResult]:
-        inf = self.config["inference"]
-        rj = inf["rjmcmc_params"]
-        for flag in ("superstep_split_merge", "superstep_move_switch"):
-            if rj.get(flag):
-                raise NotImplementedError(f"{flag} is not ported")
-        if inf.get("scene_mode", "tiled") != "exact":
-            raise NotImplementedError("only the exact scene mode is ported")
+        check_inference_config(self.config)
         return run_exact_scenes_batched(
             datas, self.setup, self.comb, self.params, seeds=list(seeds),
-            capacity=self.config.get("capacity", 256),
-            segment_size=int(inf.get("segment_size", 4096)),
-            max_segments=max_segments,
-            data_moves=bool(rj.get("superstep_data_moves", True)),
-            device=self.device)
+            max_segments=max_segments, device=self.device,
+            **chain_options(self.config))
 
 
-def final_detections(result: SceneResult, threshold: float = NMS_DISTANCE
-                     ) -> Dict[str, np.ndarray]:
-    """Distance NMS on a scene's scored detections (highest score kept)."""
-    if len(result.centers) == 0:
-        return {"centers": result.centers, "marks": result.marks,
-                "scores": result.scores}
-    _, _, keep = nms_distance(result.centers, result.scores, threshold,
-                              return_index=True)
-    keep = np.asarray(keep, int)
-    return {"centers": result.centers[keep], "marks": result.marks[keep],
-            "scores": result.scores[keep]}
+def chain_options(config: Dict) -> Dict:
+    """``run_exact_scenes_batched``'s options from an MPP config."""
+    inf = config["inference"]
+    rj = inf["rjmcmc_params"]
+    return dict(capacity=config.get("capacity", 256),
+                segment_size=int(inf.get("segment_size", 4096)),
+                data_moves=bool(rj.get("superstep_data_moves", True)),
+                stopping=stopping_from_config(rj.get("stopping")))
 
 
-def infer_scenes(images: Sequence, config: Dict,
-                 models_root: str = MODELS_ROOT, device=None,
-                 seeds: Optional[Sequence[int]] = None
-                 ) -> List[Dict[str, np.ndarray]]:
-    """Detections (centers (N, 2), marks (N, 3), papangelou scores (N,)) for
-    each (H, W, 3) image, with the trained models of ``config``."""
-    det = SceneInference.from_storage(config, models_root, device)
-    datas = [det.cnn_maps(img, name=f"scene{i}")
-             for i, img in enumerate(images)]
-    seeds = list(range(len(datas))) if seeds is None else list(seeds)
-    return [final_detections(r) for r in det.run_scenes(datas, seeds)]
+def check_inference_config(config: Dict) -> None:
+    """Raise for a config that turns on a part of the JAX inference path
+    the port does not have."""
+    inf = config["inference"]
+    if inf.get("scene_mode", "tiled") != "exact":
+        raise NotImplementedError("only the exact scene mode is ported; the "
+                                  "tiled mode is ROADMAP.md item 10")
+    rj = inf["rjmcmc_params"]
+    for block, switches in ((inf, _INFERENCE_OFF), (rj, _RJMCMC_OFF)):
+        for key, (off, item) in switches.items():
+            if block.get(key, off) != off:
+                raise NotImplementedError(
+                    f"inference option {key}={block[key]!r} is not ported "
+                    f"(ROADMAP.md item {item})")
+
+
+def export_detections(result: SceneResult, max_score: float
+                      ) -> Dict[str, np.ndarray]:
+    """A scene's final configuration as ``MPPModel.infer`` exports it:
+    every point, its (short, long, angle) rectangle and polygon, and the
+    papangelou score, also divided by ``max_score`` for the DOTA files."""
+    centers = np.asarray(result.centers).reshape(-1, 2)
+    marks = np.asarray(result.marks).reshape(-1, 3)
+    scores = np.asarray(result.scores).reshape(-1)
+    b_long = 2.0 * marks[:, 0] / (1.0 + marks[:, 1])
+    params = np.stack([b_long * marks[:, 1], b_long, marks[:, 2]], axis=-1)
+    polys = rect_to_poly_np(centers, params[:, 0], params[:, 1],
+                            params[:, 2])
+    return {"centers": centers, "marks": marks, "params": params,
+            "polygons": polys, "scores": scores,
+            "scores01": scores / max_score}
+
+
+def _cnn_checkpoint_mtime(model_name: str, kind: str) -> float:
+    """mtime of the model's newest weight file (0.0 if none found)."""
+    mdir = os.path.join(get_model_base_path(), kind, model_name)
+    times = [
+        os.path.getmtime(os.path.join(mdir, f))
+        for f in (os.listdir(mdir) if os.path.isdir(mdir) else [])
+        if f.endswith(".msgpack")
+    ]
+    return max(times, default=0.0)
+
+
+def ensure_cnn_inference(dataset: str, subset: str, position_model,
+                         shape_model: str, device=None) -> Dict[str, float]:
+    """Run PosNet/ShapeNet inference for the images whose result pickles
+    are missing or older than their model's newest checkpoint (stale ones
+    are deleted first). Returns the seconds spent: ``cnn`` (U-Nets and the
+    detection-map kernel) and ``host`` (decoding, NMS, exports), of which
+    ``nms`` and ``decode`` (the ShapeNet's marks)."""
+    paths = fetch_data_paths(dataset, subset, metadata=False)
+    ids = [image_id(p) for p in paths["images"]]
+    pos_models = (list(position_model)
+                  if isinstance(position_model, (list, tuple))
+                  else [position_model])
+    seconds = dict.fromkeys(SECONDS_KEYS, 0.0)
+    for model_name, kind in [(pm, "posnet") for pm in pos_models] + [
+            (shape_model, "shapenet")]:
+        res_dir = get_inference_path(model_name, dataset, subset)
+        ckpt_mtime = _cnn_checkpoint_mtime(model_name, kind)
+        missing = []
+        for i in ids:
+            pkl = os.path.join(res_dir, f"{i:04}_results.pkl")
+            if os.path.exists(pkl):
+                if os.path.getmtime(pkl) >= ckpt_mtime:
+                    continue
+                logging.info(f"{kind}/{model_name} results for image {i} "
+                             "predate the newest checkpoint; regenerating")
+                os.remove(pkl)
+            missing.append(i)
+        if not missing:
+            continue
+        logging.info(f"{kind} results missing for {len(missing)} images; "
+                     "running inference")
+        with open(resolve_model_config_path(model_name)) as f:
+            cfg = json.load(f)
+        cls = PosNetModel if kind == "posnet" else ShapeNetModel
+        model = cls(cfg, device, load=True, dataset=dataset)
+        model.infer(subset=subset, overwrite=False)
+        for k in seconds:
+            seconds[k] += model.seconds[k]
+    return seconds
+
+
+class MPPModel(BaseModel):
+    def __init__(self, config: Dict, phase: str = "infer",
+                 overwrite: bool = False, load: bool = False,
+                 dataset: Optional[str] = None, device=None):
+        if not load:
+            raise NotImplementedError(
+                "MPP calibration and weight training are not ported "
+                "(ROADMAP.md item 9): load a trained model")
+        self.device = resolve_device(device)
+        self.config, self.logger, self.save_path = startup_config(
+            config, "mpp", overwrite=overwrite, load_model=load)
+        if dataset is not None:
+            self.config["dataset"]["dataset"] = dataset
+        self.dataset = self.config["dataset"]["dataset"]
+        self.position_model = self.config["dataset"]["position_model"]
+        self.shape_model = self.config["dataset"]["shape_model"]
+        self.energy_setup: EnergySetup = make_energy_setup(self.config)
+        comb_file = os.path.join(self.save_path,
+                                 "energy_combination_model.json")
+        if os.path.exists(comb_file):
+            self.energy_model = load_combiner(comb_file, device=self.device)
+            self.energy_setup.load_calibration(self.save_path)
+        elif "manual" in self.config:
+            raise NotImplementedError(
+                "the manual train mode is not ported (ROADMAP.md item 9)")
+        else:
+            raise FileNotFoundError(comb_file)
+        # seconds of the last infer/eval by stage: CNN inference (see
+        # ensure_cnn_inference), "load" of the maps, "chain", "export" and
+        # "eval"
+        self.seconds: Dict[str, float] = {}
+        # the chain results of the last infer, by image id
+        self.results: Dict[int, SceneResult] = {}
+
+    def _image_ids(self, subset: str) -> List[int]:
+        paths = fetch_data_paths(self.dataset, subset, metadata=False)
+        return [image_id(p) for p in paths["images"]]
+
+    def _load_image(self, patch_id: int, subset: str) -> ImageWMaps:
+        return load_image_w_maps(patch_id, self.dataset, subset,
+                                 self.position_model, self.shape_model)
+
+    def infer(self, subset: str = "val", overwrite: bool = True, **kwargs):
+        check_inference_config(self.config)
+        self.seconds = ensure_cnn_inference(
+            self.dataset, subset, self.position_model, self.shape_model,
+            self.device)
+        results_dir = get_inference_path(
+            model_name=os.path.split(self.save_path)[1],
+            dataset=self.dataset, subset=subset)
+        make_if_not_exist(results_dir, recursive=True)
+        dota_trlt = DOTAResultsTranslator(
+            self.dataset, subset, results_dir, det_type="obb",
+            all_classes=["vehicle"])
+        dota_trlt_sv = DOTAResultsTranslator(
+            self.dataset, subset, results_dir, det_type="obb",
+            all_classes=["vehicle"], postfix="-SV")
+
+        inf = self.config["inference"]
+        max_score = inf.get("max_score", 4.0)
+        params = rjmcmc_params_from_config(self.config)
+
+        ids = self._image_ids(subset)
+        pending = [pid for pid in ids if overwrite or not os.path.exists(
+            os.path.join(results_dir, f"{pid:04}_results.pkl"))]
+        t_stage = time.perf_counter()
+        datas = {pid: self._load_image(pid, subset) for pid in pending}
+        self.seconds["load"] = time.perf_counter() - t_stage
+        t_stage = time.perf_counter()
+        if inf.get("batch_scenes") and len(pending) > 1:
+            # every pending scene at one shared bucket and capacity
+            groups = [(pending, "batched_chains.ck.npz")]
+        else:
+            groups = [([pid], f"{pid:04}_chains.ck.npz") for pid in pending]
+        results: Dict[int, SceneResult] = {}
+        for pids, ck_name in groups:
+            out = run_exact_scenes_batched(
+                [datas[pid] for pid in pids], self.energy_setup,
+                self.energy_model, params, seeds=pids, device=self.device,
+                checkpoint_path=os.path.join(results_dir, ck_name),
+                **chain_options(self.config))
+            results.update(zip(pids, out))
+        self.seconds["chain"] = time.perf_counter() - t_stage
+        self.results = results
+
+        t_stage = time.perf_counter()
+        ann_paths = dict(zip(ids, fetch_data_paths(
+            self.dataset, subset, metadata=False)["annotations"]))
+        for patch_id in ids:
+            out_pkl = os.path.join(results_dir, f"{patch_id:04}_results.pkl")
+            if patch_id not in results:
+                # resume: replay the existing result pickle into the freshly
+                # rewritten DOTA translations
+                logging.info(f"{out_pkl} exists, replaying into translations")
+                with open(ann_paths[patch_id], "rb") as f:
+                    labels = pickle.load(f)
+                prev = load_results(out_pkl)
+                self._add_gt(dota_trlt, dota_trlt_sv, patch_id, labels)
+                prev_scores = (np.asarray(prev["detection_score"]).reshape(-1)
+                               / max_score)
+                for trlt in (dota_trlt, dota_trlt_sv):
+                    trlt.add_detections(
+                        image_id=patch_id, scores=prev_scores,
+                        polygons=np.asarray(prev["detection"]).reshape(
+                            -1, 4, 2),
+                        flip_coor=True,
+                        class_names=["vehicle"] * len(prev_scores))
+                continue
+            data = datas[patch_id]
+            det = export_detections(results[patch_id], max_score)
+            self._add_gt(dota_trlt, dota_trlt_sv, patch_id, data.labels)
+            scores01 = det["scores01"]
+            if len(scores01) and scores01.max() > 1.0:
+                logging.warning(f"pred score exceeds max_score "
+                                f"({det['scores'].max():.2f} > {max_score})")
+            for trlt in (dota_trlt, dota_trlt_sv):
+                trlt.add_detections(
+                    image_id=patch_id, scores=scores01,
+                    polygons=det["polygons"], flip_coor=True,
+                    class_names=["vehicle"] * len(scores01))
+            with open(out_pkl, "wb") as f:
+                pickle.dump(
+                    {
+                        "detection": det["polygons"],
+                        "detection_type": "poly",
+                        "detection_center": det["centers"],
+                        "detection_score": det["scores"],
+                        "detection_params": det["params"],
+                        "detection_marks": det["marks"],
+                        "mappings": data.mappings,
+                    },
+                    f,
+                )
+        dota_trlt.save()
+        dota_trlt_sv.save()
+        self.seconds["export"] = time.perf_counter() - t_stage
+        logging.info("saved dota translation")
+
+    @staticmethod
+    def _add_gt(dota_trlt, dota_trlt_sv, patch_id: int, labels: Dict):
+        """The image's GT in both translations; ``-SV`` marks large
+        vehicles difficult."""
+        centers = np.asarray(labels["centers"]).reshape(-1, 2)
+        gt_params = np.asarray(labels["parameters"]).reshape(-1, 3)
+        difficulty = np.asarray(labels["difficult"]).reshape(-1)
+        categories = np.asarray(labels["categories"]).reshape(-1)
+        gt_as_poly = rect_to_poly_np(centers, gt_params[:, 0],
+                                     gt_params[:, 1], gt_params[:, 2])
+        dota_trlt.add_gt(image_id=patch_id, polygons=gt_as_poly,
+                         difficulty=difficulty,
+                         categories=["vehicle"] * len(gt_as_poly))
+        dota_trlt_sv.add_gt(
+            image_id=patch_id, polygons=gt_as_poly,
+            difficulty=[bool(d) or c == "large-vehicle"
+                        for d, c in zip(difficulty, categories)],
+            categories=["vehicle"] * len(gt_as_poly))
+
+    def eval(self):
+        t_stage = time.perf_counter()
+        dota_eval(model_dir=self.save_path, dataset=self.dataset,
+                  subset="val", det_type="obb")
+        dota_eval(model_dir=self.save_path, dataset=self.dataset,
+                  subset="val", det_type="obb", postfix="-SV")
+        self.seconds["eval"] = time.perf_counter() - t_stage

@@ -5,16 +5,20 @@ Counterpart of the exact-scene part of
 shape bucket, initialise from the thresholded detection map, run ONE global
 cell-parallel chain in annealing segments over the full maps, then score
 every detection with its papangelou intensity. The superstep budget math is
-the JAX package's, verbatim. Checkpoint/resume, restarts, stopping
-conditions, polish and the mesh are not ported; the batched entry point
-loops the per-scene one at the batch's shared bucket and capacity.
+the JAX package's, verbatim, and so are the stopping check between segments
+and the segment checkpoint (``.ck.npz``: the batch's states, progress and a
+fingerprint of the budget; resumed when the fingerprint matches, removed at
+the end). Restarts, polish and the mesh are not ported; the batched entry
+point loops the per-scene chain at the batch's shared bucket and capacity.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,12 +36,18 @@ from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import CELL
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
     EnergyCache,
     RJMCMCParams,
+    build_cache,
+    energy_from_cache,
     papangelou,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
     state_from_arrays,
     state_to_arrays,
+)
+from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
+    SegmentSummary,
+    StoppingCondition,
 )
 from mpp_cnn_rs_object_detection_torch.ops.nms import nms_distance
 from mpp_cnn_rs_object_detection_torch.parallel.sharded_scene import (
@@ -149,6 +159,46 @@ class SceneResult:
     capacity: int = 0
     seconds: Dict[str, float] = field(default_factory=dict)
     chain: Optional[ChainOutcome] = None
+    stopped: bool = False        # a stopping condition ended the anneal
+
+
+# the batched checkpoint's format tag, the fingerprint's first entry: the
+# JAX package writes the same file name into the same inference directory
+CHECKPOINT_FORMAT = 1.0
+CHECKPOINT_KEYS = {"xy", "marks", "alive", "done", "t0", "stopped",
+                   "fingerprint"}
+
+
+@dataclass
+class ChainProgress:
+    """Where a scene's anneal stands between segments: what a checkpoint
+    stores per scene, and what a resumed run starts from."""
+
+    xy: np.ndarray       # (K, 2)
+    marks: np.ndarray    # (K, 3)
+    alive: np.ndarray    # (K,)
+    done: int = 0        # supersteps run
+    t0: float = 1.0      # temperature of the next superstep
+    stopped: bool = False
+
+    @classmethod
+    def of(cls, state: PointsState, done: int, t0: float,
+           stopped: bool = False) -> "ChainProgress":
+        return cls(xy=state.xy.cpu().numpy(), marks=state.marks.cpu().numpy(),
+                   alive=state.alive.cpu().numpy(), done=done, t0=t0,
+                   stopped=stopped)
+
+    def finished(self, total_super: int) -> bool:
+        return self.stopped or self.done >= total_super
+
+
+def segment_seed(seed: int, done: int) -> int:
+    """The generator seed of the segment that starts at superstep ``done``
+    of the chain seeded ``seed`` (the counterpart of JAX's
+    ``fold_in(PRNGKey(seed), done)``): a resumed chain draws what the
+    uninterrupted one would have."""
+    return int(np.random.SeedSequence([int(seed), int(done)])
+               .generate_state(1, np.uint64)[0])
 
 
 def _sync(device: torch.device) -> None:
@@ -191,28 +241,46 @@ def _run_prepared(data: ImageWMaps, c0, m0, orig_hw, setup: EnergySetup,
                   comb: EnergyCombiner, params: RJMCMCParams, seed: int,
                   cap: int, segment_size: int,
                   max_segments: Optional[int], data_moves: bool,
-                  device: torch.device, prep_s: float) -> SceneResult:
+                  device: torch.device, prep_s: float,
+                  stopping: Optional[StoppingCondition] = None,
+                  resume: Optional[ChainProgress] = None,
+                  on_segment: Optional[Callable[[ChainProgress], None]] = None,
+                  ) -> SceneResult:
     """The chain and scores of one prepared scene; ``prep_s`` is the time
-    its ``_prepare`` took, which ``seconds["prep"]`` includes."""
+    its ``_prepare`` took, which ``seconds["prep"]`` includes.
+
+    ``stopping`` is checked after every segment but the last; ``resume``
+    starts the anneal where a checkpoint left it; ``on_segment`` receives
+    the progress after every segment (the checkpoint writer)."""
     t_start = time.perf_counter()
     h, w = data.shape
     c0, m0 = c0[:cap], m0[:cap]
     maps = setup.make_maps(data)
     kd = setup.make_kernel_data(data, intensity=max(1, len(c0)))
-    state = state_from_arrays(c0, m0, capacity=cap, device=device)
     budget = superstep_budget(h, w, params, segment_size)
+    done, t0, stopped = 0, float(params.t0), False
+    if resume is not None:
+        state = PointsState(
+            xy=torch.as_tensor(resume.xy, device=device),
+            marks=torch.as_tensor(resume.marks, device=device),
+            alive=torch.as_tensor(resume.alive, device=device))
+        done, t0, stopped = resume.done, resume.t0, resume.stopped
+    else:
+        state = state_from_arrays(c0, m0, capacity=cap, device=device)
     gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
     _sync(device)
     t_prep = prep_s + time.perf_counter() - t_start
 
     t_chain = time.perf_counter()
-    done, t0, segments = 0, float(params.t0), 0
+    segments = 0
     cache, stats = None, None
-    while done < budget.total_super:
+    summaries: List[SegmentSummary] = []
+    while done < budget.total_super and not stopped:
         if max_segments is not None and segments >= max_segments:
             break
+        t_seg = time.perf_counter()
         n = min(budget.seg_super, budget.total_super - done)
+        gen.manual_seed(segment_seed(seed, done))
         state, cache, stats = run_exact_scene_chain(
             gen, state, maps, setup.spec, comb, kd, n_supersteps=n, t0=t0,
             alpha_t=budget.alpha_super, t_target=budget.t_target,
@@ -220,10 +288,31 @@ def _run_prepared(data: ImageWMaps, c0, m0, orig_hw, setup: EnergySetup,
         done += n
         segments += 1
         t0 = max(float(t0 * budget.alpha_super ** n), budget.t_target)
+        if stopping is not None:
+            summaries.append(SegmentSummary(
+                iter=done * budget.mps, energy=float(stats.final_energy),
+                n_points=int(stats.final_n_points), temperature=t0,
+                accept_rate=float(stats.accepted.sum())
+                / max(float(stats.proposed.sum()), 1.0),
+                seconds=time.perf_counter() - t_seg))
+            stopped = done < budget.total_super and stopping.do_stop(
+                summaries)
+            if stopped:
+                logging.info(
+                    f"scene {data.name}: stopping fired at superstep "
+                    f"{done}/{budget.total_super} (E={summaries[-1].energy:.2f}"
+                    f" acc={summaries[-1].accept_rate:.4f} T={t0:.4g})")
+        if on_segment is not None:
+            on_segment(ChainProgress.of(state, done, t0, stopped))
     _sync(device)
     t_chain = time.perf_counter() - t_chain
 
     t_score = time.perf_counter()
+    if cache is None:  # no segment ran here (resumed at its end)
+        cache = build_cache(state, maps, setup.spec)
+        energy = energy_from_cache(state, maps, setup.spec, comb, cache)
+    else:
+        energy = stats.final_energy
     scores_k = papangelou(state, maps, setup.spec, comb).cpu().numpy()
     xy, marks = state_to_arrays(state)
     alive = state.alive.cpu().numpy()
@@ -235,7 +324,6 @@ def _run_prepared(data: ImageWMaps, c0, m0, orig_hw, setup: EnergySetup,
     h0, w0 = orig_hw
     keep = ((centers_np[:, 0] < h0) & (centers_np[:, 1] < w0)
             & (centers_np >= 0).all(axis=1))
-    energy = stats.final_energy if stats is not None else torch.zeros(())
     return SceneResult(
         centers=centers_np[keep], marks=marks_np[keep],
         scores=scores_np[keep], total_moves=done * budget.mps,
@@ -243,6 +331,7 @@ def _run_prepared(data: ImageWMaps, c0, m0, orig_hw, setup: EnergySetup,
         seconds={"prep": t_prep, "chain": t_chain, "score": t_score},
         chain=ChainOutcome(state=state, cache=cache, energy=energy,
                            maps=maps),
+        stopped=stopped,
     )
 
 
@@ -274,10 +363,26 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
                              segment_size: int = 4096,
                              max_segments: Optional[int] = None,
                              data_moves: bool = True,
-                             device=None) -> List[SceneResult]:
+                             device=None,
+                             checkpoint_path: Optional[str] = None,
+                             stopping: Optional[StoppingCondition] = None,
+                             ) -> List[SceneResult]:
     """Exact scenes over a batch sharing ONE bucket and ONE capacity (the
     JAX batched run's signature), run scene by scene: scene i equals
-    ``run_exact_scene`` at that bucket and capacity with ``seeds[i]``."""
+    ``run_exact_scene`` at that bucket and capacity with ``seeds[i]``.
+
+    ``stopping`` is evaluated per scene, on that scene's segment summaries;
+    the JAX batched run evaluates it jointly (mean energy, summed accepts
+    over the batch). With ``max_iter`` the two stop at the same superstep.
+
+    ``checkpoint_path``: after every segment, the batch's states and
+    progress go to this ``.npz`` with a fingerprint of the budget (its
+    supersteps, segment, annealing, capacity, bucket, batch size and
+    seeds); a run that finds a matching file resumes each scene where it
+    stood, and the file is removed once every scene is done. The layout
+    differs from the JAX package's batched checkpoint (per-scene progress),
+    and the fingerprint's leading ``CHECKPOINT_FORMAT`` makes it one entry
+    longer, so each package restarts on the other's file."""
     assert len(datas) > 0
     device = resolve_device(device)
     target_h = max(scene_shape_bucket(*d.shape, 1)[0] for d in datas)
@@ -290,8 +395,57 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
         prep_s.append(time.perf_counter() - t_start)
     cap = max(_capacity(target_h, target_w, capacity, len(p[1]))
               for p in prepared)
-    return [_run_prepared(d, c0, m0, orig, setup, comb, params, seed, cap,
-                          segment_size, max_segments,
-                          data_moves, device, t_prep)
-            for (d, c0, m0, orig), seed, t_prep
-            in zip(prepared, seeds, prep_s)]
+    budget = superstep_budget(target_h, target_w, params, segment_size)
+    fingerprint = np.array(
+        [CHECKPOINT_FORMAT, budget.total_super, budget.seg_super,
+         budget.alpha_super, budget.t_target, cap, target_h, target_w,
+         len(datas)] + [int(s) for s in seeds], np.float64)
+
+    progress: List[Optional[ChainProgress]] = [None] * len(datas)
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        ck = np.load(checkpoint_path)
+        if (CHECKPOINT_KEYS <= set(ck.files)
+                and ck["fingerprint"].shape == fingerprint.shape
+                and bool(np.allclose(ck["fingerprint"], fingerprint))
+                and ck["done"].shape == (len(datas),)):
+            progress = [ChainProgress(
+                xy=ck["xy"][i], marks=ck["marks"][i], alive=ck["alive"][i],
+                done=int(ck["done"][i]), t0=float(ck["t0"][i]),
+                stopped=bool(ck["stopped"][i])) for i in range(len(datas))]
+            logging.info(f"batched scenes: resuming at supersteps "
+                         f"{[p.done for p in progress]}")
+        else:
+            logging.warning("batched scenes: checkpoint mismatch - restart")
+    # what the checkpoint holds per scene: its progress, or its initial
+    # configuration until its first segment has run
+    record = [p if p is not None else ChainProgress.of(
+        state_from_arrays(c0[:cap], m0[:cap], capacity=cap), 0,
+        float(params.t0)) for p, (_, c0, m0, _) in zip(progress, prepared)]
+
+    def checkpoint(i: int, prog: ChainProgress) -> None:
+        record[i] = prog
+        if all(r.finished(budget.total_super) for r in record):
+            return
+        np.savez(checkpoint_path,
+                 xy=np.stack([r.xy for r in record]),
+                 marks=np.stack([r.marks for r in record]),
+                 alive=np.stack([r.alive for r in record]),
+                 done=np.array([r.done for r in record]),
+                 t0=np.array([r.t0 for r in record]),
+                 stopped=np.array([r.stopped for r in record]),
+                 fingerprint=fingerprint)
+
+    results = []
+    for i, ((d, c0, m0, orig), seed, t_prep) in enumerate(
+            zip(prepared, seeds, prep_s)):
+        on_segment = None
+        if checkpoint_path:
+            on_segment = lambda prog, i=i: checkpoint(i, prog)  # noqa: E731
+        results.append(_run_prepared(
+            d, c0, m0, orig, setup, comb, params, seed, cap, segment_size,
+            max_segments, data_moves, device, t_prep, stopping=stopping,
+            resume=progress[i], on_segment=on_segment))
+    if checkpoint_path and os.path.exists(checkpoint_path) and all(
+            r.finished(budget.total_super) for r in record):
+        os.remove(checkpoint_path)
+    return results

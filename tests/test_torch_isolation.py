@@ -1,7 +1,8 @@
 """The PyTorch port and chip_smoke.py must run where the JAX stack is
 absent: with jax, flax, optax, msgpack, PIL, ninja and the JAX package
-blocked, every module of the port and chip_smoke.py import, and the
-checkpoint reader decodes a checked-in flax checkpoint."""
+blocked, every module of the port and chip_smoke.py import, the checkpoint
+reader decodes a checked-in flax checkpoint, and the synthetic dataset
+writer and the PNG codec run."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ CKPT = os.path.join(ROOT, "artifacts", "models_storage", "posnet",
                     "pos_r2cp_tta", "model.msgpack")
 
 SCRIPT = f"""
-import importlib, os, pkgutil, sys
+import importlib, os, pkgutil, sys, tempfile
 for name in {BLOCKED!r}:
     sys.modules[name] = None
 sys.path.insert(0, {ROOT!r})
@@ -28,6 +29,15 @@ import chip_smoke
 from {PORT}.models.checkpoint import read_checkpoint
 ck = read_checkpoint({CKPT!r})
 assert ck["params"]["net"]["Conv_0"]["kernel"].shape == (1, 1, 32, 3)
+from {PORT}.data.synth import make_synth_dataset
+from {PORT}.utils import png
+with tempfile.TemporaryDirectory() as tmp:
+    make_synth_dataset(name="s", n_items=1, shape=(32, 40), n_rect=4,
+                       base_dir=tmp)
+    img = png.read_png(os.path.join(tmp, "s", "val", "images", "0000.png"))
+    assert img.shape == (32, 40, 3), img.shape
+    png.write_png(os.path.join(tmp, "copy.png"), img)
+    assert (png.read_png(os.path.join(tmp, "copy.png")) == img).all()
 loaded = [n for n in sys.modules if n.split(".")[0] in {BLOCKED!r}
           and sys.modules[n] is not None]
 assert not loaded, loaded

@@ -245,49 +245,89 @@ def test_single_scene_entry_matches_batched(slice_run):
     np.testing.assert_array_equal(one.scores, ref.scores)
 
 
-def test_infer_scenes_reads_stored_models(tmp_path):
-    """The user entry point end to end: model directories written by flax
-    (narrow widths) are read by the port's msgpack reader, and one scene
-    comes out as finite, positive, NMS-separated detections."""
+def test_infer_scenes_reads_stored_models(tmp_path, monkeypatch):
+    """The dataset entry point end to end on a stored workspace: model
+    directories written by flax (narrow widths) are read by the port's
+    msgpack reader when ``MPPModel.infer`` runs the CNN inference over a
+    one-scene dataset; the detection map it stores matches the JAX models'
+    map of the same image, and the export holds every point of the chain's
+    final configuration (no NMS, which the JAX exact path does not have)."""
+    import pickle
+
     import flax.serialization
 
+    from mpp_cnn_rs_object_detection_torch.data.synth import (
+        make_synth_dataset,
+    )
+    from mpp_cnn_rs_object_detection_torch.utils.files import load_results
+    from mpp_cnn_rs_object_detection_torch.utils.png import read_unit_image
+
     def store(kind, name, config, params, stats):
-        d = tmp_path / kind / name
+        d = tmp_path / "models" / kind / name
         d.mkdir(parents=True)
-        (d / "config.json").write_text(json.dumps(config))
+        (d / "config.json").write_text(json.dumps(dict(config,
+                                                       model_name=name)))
         (d / "model.msgpack").write_bytes(flax.serialization.to_bytes(
             {"params": params, "batch_stats": stats, "opt_state": {},
              "epoch": 1}))
 
-    for i, name in enumerate(("pos_a", "pos_b")):
+    pos_names = ("pos_slice_a", "pos_slice_b")
+    pos_j = []
+    for i, name in enumerate(pos_names):
         jm, _ = _posnet(i)
+        pos_j.append(jm)
         store("posnet", name, {
-            "model_name": name, "div_clf_model": True,
+            "div_clf_model": True,
             "model": {"hidden_dims": NARROW, "dtype": "float32"},
             "loss": {"learn_mask": True}, "inference": {"tta": True}},
             jm.state.params, jm.state.batch_stats)
     jm, _ = _shapenet()
-    store("shapenet", "shape", {
-        "model_name": "shape", "trainer": {"n_classes": N_CLS},
+    store("shapenet", "shape_slice", {
+        "trainer": {"n_classes": N_CLS},
         "model": {"hidden_dims": NARROW, "dtype": "float32"},
-        "inference": {"tta": True}}, jm.state.params, jm.state.batch_stats)
+        "inference": {"tta": True, "pos_model": pos_names[0]}},
+        jm.state.params, jm.state.batch_stats)
     config = tmm.load_mpp_config("mpp_log_r12ttapar")
-    mpp_dir = tmp_path / "mpp" / config["model_name"]
+    mpp_dir = tmp_path / "models" / "mpp" / config["model_name"]
     mpp_dir.mkdir(parents=True)
     for f in ("calibration.json", "energy_combination_model.json"):
         (mpp_dir / f).write_text(open(os.path.join(FLAGSHIP, f)).read())
-    config["dataset"].update(position_model=["pos_a", "pos_b"],
-                             shape_model="shape")
+    config["dataset"].update(dataset="synth_slice",
+                             position_model=list(pos_names),
+                             shape_model="shape_slice")
     config["inference"]["segment_size"] = SEGMENT
     config["inference"]["rjmcmc_params"].update(burn_in=N_STEPS,
                                                  alpha_t=ALPHA)
-    image, _, _ = synthetic_scene(SIZE, SIZE, 12, seed=0)
-    (det,) = tmm.infer_scenes([image], config, models_root=str(tmp_path),
-                              device="cpu")
-    n = len(det["scores"])
-    assert n > 0 and det["centers"].shape == (n, 2)
-    assert det["marks"].shape == (n, 3)
-    assert np.isfinite(det["scores"]).all() and (det["scores"] > 0).all()
-    gaps = np.linalg.norm(det["centers"][:, None] - det["centers"][None],
-                          axis=-1) + np.eye(n) * 1e9
-    assert gaps.min() > tmm.NMS_DISTANCE
+    make_synth_dataset(name="synth_slice", n_items=1, shape=(SIZE, SIZE),
+                       n_rect=12, seed=0, base_dir=str(tmp_path / "data"))
+    (tmp_path / "paths_config.json").write_text(json.dumps(
+        {"dataset_path": [str(tmp_path / "data")],
+         "model_path": [str(tmp_path / "models")]}))
+    monkeypatch.chdir(tmp_path)
+
+    model = tmm.MPPModel(config, load=True, device="cpu")
+    model.infer("val")
+    inference = tmp_path / "data" / "inference" / "synth_slice" / "val"
+    # the stored PosNets against the JAX models on the image as stored
+    image = read_unit_image(str(tmp_path / "data" / "synth_slice" / "val"
+                                / "images" / "0000.png"))
+    for name, jm in zip(pos_names, pos_j):
+        got = load_results(str(inference / name / "0000_results.pkl"))
+        np.testing.assert_allclose(got["detection_map"],
+                                   jm.detection_map_on_image(image),
+                                   rtol=RTOL, atol=ATOL)
+    # the export: every point of the chain's configuration
+    res = model.results[0]
+    with open(inference / config["model_name"] / "0000_results.pkl",
+              "rb") as f:
+        det = pickle.load(f)
+    n = len(res.scores)
+    assert n > 0 and det["detection_center"].shape == (n, 2)
+    np.testing.assert_array_equal(det["detection_center"], res.centers)
+    np.testing.assert_array_equal(det["detection_marks"], res.marks)
+    np.testing.assert_array_equal(det["detection_score"], res.scores)
+    assert np.isfinite(res.scores).all() and (res.scores > 0).all()
+    assert det["detection"].shape == (n, 4, 2)
+    with open(inference / config["model_name"] / "dota" / "det"
+              / "vehicle.txt") as f:
+        assert len(f.read().splitlines()) == n
