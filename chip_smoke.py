@@ -26,7 +26,13 @@ Phases (each prints one line with its seconds; any failure raises):
   4. the exact whole-scene chain at the 1024 bucket with K = 1024 for
      ``--max-segments`` segments of 341 supersteps: ms per superstep, the
      projected full-budget seconds, a finite energy, and the carried cache
-     and energy against a rebuild;
+     and energy against a rebuild; then the same scene as a batch of B = 1
+     and of B = 2 lanes (one program, seeds ``--seed`` and ``--seed`` + 1)
+     for one segment each: ms per superstep of both, and lane 0 of B = 2
+     against B = 1 -- identical detections, or, where the card's reductions
+     differ in the last bit between the two shapes, the same first
+     superstep (accept set and states) and final energies within the
+     chains' spread (it prints which check held);
   5. papangelou scores (finite, positive) and the detection count: every
      point of the final configuration, as the export writes it;
   6. the port's command line on a dataset, from a temporary directory with
@@ -38,8 +44,18 @@ Phases (each prints one line with its seconds; any failure raises):
      writer, and a copy of the flagship config whose only change is a
      ``max_iter`` stopping block of one 341-superstep segment per scene.
      ``-p infereval -m mpp`` must launch the detection-map kernel 3 times
-     per scene, write both result pickles, ``dota/`` and ``dota-SV/`` and
-     every metrics JSON with finite APs, and remove its chain checkpoint.
+     per scene, run both scenes as one batched program that stops them at
+     the same superstep, write both result pickles, ``dota/`` and
+     ``dota-SV/`` and every metrics JSON with finite APs, and remove its
+     chain checkpoint;
+  7. on phase 6's workspace (its CNN results reused), ``-p infereval -m mpp
+     -c mpp_log_r12tta``: the trained combiner and calibration of that
+     model store with the same depth cut, refine, score blend and backfill
+     on; DOTA files and finite APs;
+  8. a copy of that config with ``restarts: 2`` and ``polish_steps: 64``,
+     which takes the per-image path (one scene in memory at a time): per
+     scene the lanes' energies, the lane kept (the least energy) and U
+     before and after polish, which must not rise.
 Then one JSON line per kernel table, the card's name and power limit, and
 the result line ``{"ok": true, "device": {...}}`` last.
 """
@@ -55,6 +71,14 @@ import tempfile
 import time
 
 MPP_CONFIG = "mpp_log_r12ttapar"
+# phases 7 and 8: the trained extension config on the same CNNs
+EXT_CONFIG = "mpp_log_r12tta"
+RESTARTS, POLISH_STEPS = 2, 64
+# lane 0 of a B = 2 batch against the B = 1 run, where they are not
+# identical: the first superstep's states, and the final energies of two
+# chains of one scene from the same draws (relative)
+FIRST_STEP_TOL = 1e-4
+CHAIN_ENERGY_RTOL = 0.1
 # the synthetic scene: the flagship's shape (pads to the 1024 bucket and
 # exercises the crop) and a DOTA-like vehicle count
 HEIGHT, WIDTH, OBJECTS = 958, 926, 150
@@ -293,6 +317,44 @@ def load_models(config, device, seed: int):
     return models[:-1], models[-1]
 
 
+def mpp_config_copy(root: str, base: str, name: str, **inference) -> str:
+    """``model_configs/mpp/<base>.json`` for the synthetic dataset under
+    ``root``, named ``name`` (its model store gets ``base``'s trained
+    calibration and combiner), with the depth cut -- a ``max_iter``
+    stopping block of one 341-superstep segment per scene -- and
+    ``inference`` updated. Returns the config's path."""
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import (
+        MODELS_ROOT,
+        load_mpp_config,
+        rjmcmc_params_from_config,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import (
+        scene_shape_bucket,
+        superstep_budget,
+    )
+
+    cfg = load_mpp_config(base)
+    h, w = scene_shape_bucket(HEIGHT, WIDTH)
+    budget = superstep_budget(h, w, rjmcmc_params_from_config(cfg),
+                              cfg["inference"].get("segment_size", 4096))
+    assert budget.seg_super == 341, budget
+    cfg["model_name"] = name
+    cfg["dataset"]["dataset"] = "synth_smoke"
+    cfg["inference"]["rjmcmc_params"]["stopping"] = {
+        "kind": "max_iter", "max_iter": budget.seg_super * budget.mps}
+    cfg["inference"].update(inference)
+    store = os.path.join(root, "models", "mpp", name)
+    os.makedirs(store)
+    for f in ("calibration.json", "energy_combination_model.json"):
+        shutil.copy(os.path.join(MODELS_ROOT, "mpp", base, f), store)
+    with open(os.path.join(store, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    path = os.path.join(root, name + ".json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
 def cli_workspace(root: str, config, device, seed: int) -> str:
     """Phase 6's dataset, model store and config under ``root``; returns
     the config's path."""
@@ -310,11 +372,6 @@ def cli_workspace(root: str, config, device, seed: int) -> str:
     from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import (
         MODELS_ROOT,
         REPO_ROOT,
-        rjmcmc_params_from_config,
-    )
-    from mpp_cnn_rs_object_detection_torch.mpp.scene import (
-        scene_shape_bucket,
-        superstep_budget,
     )
 
     data, models = os.path.join(root, "data"), os.path.join(root, "models")
@@ -352,97 +409,229 @@ def cli_workspace(root: str, config, device, seed: int) -> str:
             model.save()
             source += f" {seed}, written by the msgpack writer"
         print(f"  store {kind}/{name}: {source}", flush=True)
-
-    mpp_dst = os.path.join(models, "mpp", config["model_name"])
-    os.makedirs(mpp_dst)
-    for f in ("config.json", "calibration.json",
-              "energy_combination_model.json"):
-        shutil.copy(os.path.join(MODELS_ROOT, "mpp", config["model_name"], f),
-                    mpp_dst)
-    # the depth cut: stop each scene's chain after its first segment
-    h, w = scene_shape_bucket(HEIGHT, WIDTH)
-    budget = superstep_budget(h, w, rjmcmc_params_from_config(config),
-                              config["inference"].get("segment_size", 4096))
-    assert budget.seg_super == 341, budget
-    cut = json.loads(json.dumps(config))
-    cut["dataset"]["dataset"] = "synth_smoke"
-    cut["inference"]["rjmcmc_params"]["stopping"] = {
-        "kind": "max_iter", "max_iter": budget.seg_super * budget.mps}
-    path = os.path.join(root, MPP_CONFIG + ".json")
-    with open(path, "w") as f:
-        json.dump(cut, f, indent=1)
-    return path
+    return mpp_config_copy(root, config["model_name"], config["model_name"])
 
 
-def cli_phase(config, device, seed: int) -> int:
-    """Phase 6; returns the detection-map kernel launches it counted."""
+def run_cli(root: str, cfg_path: str, device):
+    """``-p infereval -m mpp -c cfg_path`` from ``root``; returns the model
+    and the seconds it took."""
+    from mpp_cnn_rs_object_detection_torch.__main__ import main as cli_main
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        model = cli_main(["-p", "infereval", "-m", "mpp", "-c", cfg_path],
+                         device=device)
+        return model, time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+
+
+def check_exports(root: str, model, name: str) -> dict:
+    """Both scenes' result pickles, ``dota/`` and ``dota-SV/`` with every
+    metrics JSON, finite APs, and no chain checkpoint left. Returns the
+    APs."""
     import numpy as np
 
-    from mpp_cnn_rs_object_detection_torch.__main__ import main as cli_main
-    from mpp_cnn_rs_object_detection_torch.ops import (
-        detection_kernel as dk,
-    )
     from mpp_cnn_rs_object_detection_torch.utils.config import (
         get_inference_path,
     )
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     cwd = os.getcwd()
+    os.chdir(root)
     try:
-        t0 = time.perf_counter()
-        cfg_path = cli_workspace(root, config, device, seed)
-        print(f"  workspace (dataset, model store, config): "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
-        os.chdir(root)
-        dk.KERNEL.launches = 0
-        t0 = time.perf_counter()
-        model = cli_main(["-p", "infereval", "-m", "mpp", "-c", cfg_path],
-                         device=device)
-        t_cli = time.perf_counter() - t0
-        launches = dk.KERNEL.launches
-        sec = model.seconds
-        print(f"  CLI -p infereval -m mpp: {t_cli:.3f} s; "
-              f"ensure_cnn_inference {sec['cnn'] + sec['host']:.3f} s "
-              f"(U-Net + kernel {sec['cnn']:.3f} s, host {sec['host']:.3f} s"
-              f" of which distance NMS {sec['nms']:.3f} s and ShapeNet mark "
-              f"decoding {sec['decode']:.3f} s); load maps "
-              f"{sec['load']:.3f} s; chains "
-              f"{sec['chain']:.3f} s; export {sec['export']:.3f} s + eval "
-              f"{sec['eval']:.3f} s = {sec['export'] + sec['eval']:.3f} s",
-              flush=True)
-        n_pos = len(config["dataset"]["position_model"]) + 1
-        if launches != n_pos * CLI_SCENES:
-            raise AssertionError(f"expected {n_pos * CLI_SCENES} detection-"
-                                 f"map launches, counted {launches}")
-        results_dir = get_inference_path(config["model_name"],
-                                         "synth_smoke", "val")
-        for r in model.results.values():
-            assert r.stopped and r.supersteps == 341, (r.supersteps,
-                                                       r.stopped)
-        for i in range(CLI_SCENES):
-            assert os.path.exists(os.path.join(results_dir,
-                                               f"{i:04}_results.pkl"))
-        assert not os.path.exists(os.path.join(results_dir,
-                                               "batched_chains.ck.npz"))
-        aps = {}
-        for postfix in ("", "-SV"):
-            dota = os.path.join(results_dir, "dota" + postfix)
-            for sub in ("det/vehicle.txt", "imageSet.txt") + tuple(
-                    f"gt/{i:04}.txt" for i in range(CLI_SCENES)):
-                assert os.path.exists(os.path.join(dota, sub)), sub
-            for iou in (0.05, 0.1, 0.25, 0.5, 0.75):
-                with open(os.path.join(dota, f"metrics{iou:.2f}.json")) as f:
-                    aps[postfix, iou] = json.load(f)["vehicle"]["ap"]
-        assert np.isfinite(list(aps.values())).all(), aps
-        n_det = sum(len(r.scores) for r in model.results.values())
-        print(f"  {launches} detection-map launches ({n_pos} per scene); "
-              f"{n_det} detections over {CLI_SCENES} scenes; AP@0.05 "
-              f"{aps['', 0.05]:.4f} (SV {aps['-SV', 0.05]:.4f}), AP@0.5 "
-              f"{aps['', 0.5]:.4f} (SV {aps['-SV', 0.5]:.4f})", flush=True)
-        return launches
+        results_dir = get_inference_path(name, "synth_smoke", "val")
     finally:
         os.chdir(cwd)
-        shutil.rmtree(root)
+    assert sorted(model.results) == list(range(CLI_SCENES)), model.results
+    for i in range(CLI_SCENES):
+        assert os.path.exists(os.path.join(results_dir,
+                                           f"{i:04}_results.pkl"))
+        assert not os.path.exists(os.path.join(results_dir,
+                                               f"{i:04}_chains.ck.npz"))
+    assert not os.path.exists(os.path.join(results_dir,
+                                           "batched_chains.ck.npz"))
+    aps = {}
+    for postfix in ("", "-SV"):
+        dota = os.path.join(results_dir, "dota" + postfix)
+        for sub in ("det/vehicle.txt", "imageSet.txt") + tuple(
+                f"gt/{i:04}.txt" for i in range(CLI_SCENES)):
+            assert os.path.exists(os.path.join(dota, sub)), sub
+        for iou in (0.05, 0.1, 0.25, 0.5, 0.75):
+            with open(os.path.join(dota, f"metrics{iou:.2f}.json")) as f:
+                aps[postfix, iou] = json.load(f)["vehicle"]["ap"]
+    assert np.isfinite(list(aps.values())).all(), aps
+    return aps
+
+
+def ap_line(model, aps) -> str:
+    n_det = sum(len(r.scores) for r in model.results.values())
+    return (f"{n_det} detections over {CLI_SCENES} scenes; AP@0.05 "
+            f"{aps['', 0.05]:.4f} (SV {aps['-SV', 0.05]:.4f}), AP@0.5 "
+            f"{aps['', 0.5]:.4f} (SV {aps['-SV', 0.5]:.4f})")
+
+
+def cli_phase(root: str, config, device, seed: int) -> int:
+    """Phase 6; returns the detection-map kernel launches it counted."""
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+
+    t0 = time.perf_counter()
+    cfg_path = cli_workspace(root, config, device, seed)
+    print(f"  workspace (dataset, model store, config): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    dk.KERNEL.launches = 0
+    model, t_cli = run_cli(root, cfg_path, device)
+    launches = dk.KERNEL.launches
+    sec = model.seconds
+    print(f"  CLI -p infereval -m mpp: {t_cli:.3f} s; "
+          f"ensure_cnn_inference {sec['cnn'] + sec['host']:.3f} s "
+          f"(U-Net + kernel {sec['cnn']:.3f} s, host {sec['host']:.3f} s"
+          f" of which distance NMS {sec['nms']:.3f} s and ShapeNet mark "
+          f"decoding {sec['decode']:.3f} s); load maps "
+          f"{sec['load']:.3f} s; chains (one batched program) "
+          f"{sec['chain']:.3f} s; export {sec['export']:.3f} s + eval "
+          f"{sec['eval']:.3f} s = {sec['export'] + sec['eval']:.3f} s",
+          flush=True)
+    n_pos = len(config["dataset"]["position_model"]) + 1
+    if launches != n_pos * CLI_SCENES:
+        raise AssertionError(f"expected {n_pos * CLI_SCENES} detection-"
+                             f"map launches, counted {launches}")
+    stops = {(r.supersteps, r.stopped) for r in model.results.values()}
+    if stops != {(341, True)}:
+        raise AssertionError(f"the batch did not stop jointly after its "
+                             f"first segment: {stops}")
+    aps = check_exports(root, model, config["model_name"])
+    print(f"  {launches} detection-map launches ({n_pos} per scene); both "
+          f"scenes stopped at superstep 341; {ap_line(model, aps)}",
+          flush=True)
+    return launches
+
+
+def extensions_phase(root: str, device) -> None:
+    """Phase 7: the trained extension config on phase 6's workspace."""
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import (
+        load_mpp_config,
+    )
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+
+    base = load_mpp_config(EXT_CONFIG)["inference"]
+    on = {k: base[k] for k in ("refine_centers", "score_map_blend",
+                               "backfill_threshold")}
+    assert on["refine_centers"] and on["score_map_blend"] > 0 \
+        and on["backfill_threshold"] > 0, on
+    cfg_path = mpp_config_copy(root, EXT_CONFIG, EXT_CONFIG)
+    dk.KERNEL.launches = 0
+    model, t_cli = run_cli(root, cfg_path, device)
+    sec = model.seconds
+    stops = {(r.supersteps, r.stopped) for r in model.results.values()}
+    if stops != {(341, True)}:
+        raise AssertionError(f"{EXT_CONFIG}: the batch did not stop "
+                             f"jointly after its first segment: {stops}")
+    aps = check_exports(root, model, EXT_CONFIG)
+    print(f"  CLI -c {EXT_CONFIG} ({on}): {t_cli:.3f} s; load maps "
+          f"{sec['load']:.3f} s; chains {sec['chain']:.3f} s; export "
+          f"(refine, blend, backfill) {sec['export']:.3f} s; eval "
+          f"{sec['eval']:.3f} s; detection-map launches "
+          f"{dk.KERNEL.launches} (CNN results reused); {ap_line(model, aps)}",
+          flush=True)
+
+
+def restarts_phase(root: str, device) -> None:
+    """Phase 8: restarts and polish on the per-image path."""
+    import numpy as np
+
+    name = f"{EXT_CONFIG}_restarts"
+    cfg_path = mpp_config_copy(root, EXT_CONFIG, name, restarts=RESTARTS,
+                               polish_steps=POLISH_STEPS)
+    model, t_cli = run_cli(root, cfg_path, device)
+    sec = model.seconds
+    aps = check_exports(root, model, name)
+    for pid, r in sorted(model.results.items()):
+        u = np.asarray(r.lane_energies)
+        u_pre, u_post = r.polish_energies
+        print(f"  scene {pid}: lane energies {u.tolist()} -> lane "
+              f"{r.best_lane}; polish {POLISH_STEPS} steps U {u_pre:.4f} -> "
+              f"{u_post:.4f} in {r.seconds['polish']:.3f} s; "
+              f"{r.supersteps} supersteps, chain {r.seconds['chain']:.3f} s "
+              f"({1e3 * r.seconds['chain'] / r.supersteps:.3f} ms/superstep"
+              f" for {RESTARTS} lanes)", flush=True)
+        if len(u) != RESTARTS or r.best_lane != int(np.argmin(u)):
+            raise AssertionError(f"scene {pid}: restart lanes {u}, kept "
+                                 f"{r.best_lane}")
+        if not u_post <= u_pre:
+            raise AssertionError(f"scene {pid}: polish raised U "
+                                 f"{u_pre} -> {u_post}")
+    print(f"  CLI -c {name} (restarts {RESTARTS}, polish_steps "
+          f"{POLISH_STEPS}, per-image path): {t_cli:.3f} s; load maps "
+          f"{sec['load']:.3f} s; chains + polish {sec['chain']:.3f} s; "
+          f"export {sec['export']:.3f} s; eval {sec['eval']:.3f} s; "
+          f"{ap_line(model, aps)}", flush=True)
+
+
+def lane_phase(inference, data, seed: int) -> None:
+    """Phase 4, second part: the scene as B = 1 and B = 2 lanes of one
+    program, one segment each."""
+    import numpy as np
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import (
+        chain_options,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import (
+        run_exact_scenes_batched,
+    )
+
+    def run(n_lanes, segment_size=None):
+        kw = chain_options(inference.config)
+        if segment_size is not None:
+            kw["segment_size"] = segment_size
+        torch.cuda.synchronize()
+        out = run_exact_scenes_batched(
+            [data] * n_lanes, inference.setup, inference.comb,
+            inference.params, seeds=[seed + i for i in range(n_lanes)],
+            max_segments=1, device=inference.device, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    one = run(1)[0]
+    two = run(2)
+    ms = [1e3 * r.seconds["chain"] / r.supersteps for r in (one, two[0])]
+    print(f"  lanes: B = 1 {ms[0]:.3f} ms/superstep, B = 2 {ms[1]:.3f} "
+          f"ms/superstep ({ms[1] / ms[0]:.3f}x) over {one.supersteps} "
+          f"supersteps", flush=True)
+    lane0 = two[0]
+    same = (np.array_equal(one.centers, lane0.centers)
+            and np.array_equal(one.marks, lane0.marks)
+            and np.array_equal(one.scores, lane0.scores))
+    if same:
+        print(f"  lane check: lane 0 of B = 2 identical to B = 1 "
+              f"({len(one.centers)} detections, energy "
+              f"{float(one.chain.energy):.4f})", flush=True)
+        return
+    # the first superstep of both, from the same draws
+    s1 = run(1, segment_size=12)[0].chain.state
+    s2 = run(2, segment_size=12)[0].chain.state
+    if not torch.equal(s1.alive, s2.alive):
+        raise AssertionError("lane 0 of B = 2: another accept set in the "
+                             "first superstep than B = 1")
+    for f in ("xy", "marks"):
+        err = float((getattr(s1, f) - getattr(s2, f)).abs().max())
+        if err > FIRST_STEP_TOL:
+            raise AssertionError(f"lane 0 of B = 2: first superstep {f} off "
+                                 f"by {err}")
+    e1, e2 = float(one.chain.energy), float(lane0.chain.energy)
+    if abs(e1 - e2) > CHAIN_ENERGY_RTOL * abs(e1):
+        raise AssertionError(f"lane 0 of B = 2: energy {e2} against {e1}")
+    print(f"  lane check: not identical after {one.supersteps} supersteps "
+          f"(the card's reductions differ in the last bit between the two "
+          f"shapes); the first superstep's accept set agrees and its states "
+          f"within {FIRST_STEP_TOL}; energies {e1:.4f} and {e2:.4f} within "
+          f"{CHAIN_ENERGY_RTOL:.0%}", flush=True)
 
 
 def unet_reference_check(pos_model, device):
@@ -488,6 +677,7 @@ def run(args, device: str = "cuda:0") -> int:
         from mpp_cnn_rs_object_detection_torch.mpp.scene import (
             scene_shape_bucket,
         )
+        from mpp_cnn_rs_object_detection_torch.mpp.state import expand_lanes
         from mpp_cnn_rs_object_detection_torch.ops import (
             detection_kernel as dk,
         )
@@ -571,21 +761,24 @@ def run(args, device: str = "cuda:0") -> int:
     bucket = scene_shape_bucket(HEIGHT, WIDTH)
     assert tuple(chain.maps.position.shape) == bucket, bucket
     assert np.isfinite(energy)
-    fresh = build_cache(chain.state, chain.maps, setup.spec)
+    # the chain's functions take lanes: the kept lane as a lane of one
+    state1, maps1 = expand_lanes(chain.state, 1), expand_lanes(chain.maps, 1)
+    fresh = build_cache(state1, maps1, setup.spec)
     alive = chain.state.alive
     pair = alive[:, None] & alive[None, :]
     for f in ("dist", "overlap", "align"):
-        a, b = getattr(chain.cache, f)[pair], getattr(fresh, f)[pair]
+        a, b = getattr(chain.cache, f)[pair], getattr(fresh, f)[0][pair]
         diff = float((a - b).abs().max()) if a.numel() else 0.0
         if diff > CACHE_TOL * max(1.0, float(b.abs().max()) if b.numel()
                                   else 1.0):
             raise AssertionError(f"carried cache {f} off by {diff}")
-    u_fresh = float(energy_from_cache(chain.state, chain.maps, setup.spec,
-                                      comb, fresh))
+    u_fresh = float(energy_from_cache(state1, maps1, setup.spec, comb,
+                                      fresh)[0])
     print(f"  carried energy {energy:.4f} vs rebuilt {u_fresh:.4f}",
           flush=True)
     if abs(u_fresh - energy) > 1e-3 * max(1.0, abs(u_fresh)):
         raise AssertionError("carried energy disagrees with a rebuild")
+    lane_phase(inference, data, args.seed)
     phase("4 chain", t0)
 
     t0 = time.perf_counter()
@@ -599,10 +792,20 @@ def run(args, device: str = "cuda:0") -> int:
     if dk.KERNEL.launches == 0:
         raise AssertionError("the main path launched no detection-map kernel")
 
-    # ---- 6. the command line on a dataset, counts from 0
-    t0 = time.perf_counter()
-    launches = cli_phase(config, device, args.seed)
-    phase("6 CLI infereval on a dataset", t0)
+    # ---- 6-8. the command line on a dataset, counts from 0 in each
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        t0 = time.perf_counter()
+        launches = cli_phase(root, config, device, args.seed)
+        phase("6 CLI infereval on a dataset", t0)
+        t0 = time.perf_counter()
+        extensions_phase(root, device)
+        phase(f"7 CLI infereval -c {EXT_CONFIG}", t0)
+        t0 = time.perf_counter()
+        restarts_phase(root, device)
+        phase("8 restarts and polish, per-image path", t0)
+    finally:
+        shutil.rmtree(root)
 
     k_ms, host_ms, p_ms, bound = main_path_kernel_times(device, args.seed)
     print(f"  time of the main-path launch (8 views of {HEIGHT}x{WIDTH}, "

@@ -4,6 +4,11 @@ Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/energies.py`` for the
 CNN data term: unary energies are bilinear map gathers (tri-linear in the
 mark value for the mark maps), pair energies are (K, K) matrices masked by
 alive x alive and the interaction radius, reduced per row.
+
+The chain's functions take states and maps with one leading lane axis B
+(``mpp/state.py``): lane b's points read lane b's maps. The one-config
+references (``energy_vectors``, ``total_energy``) add a lane of one at
+their boundary.
 """
 
 from __future__ import annotations
@@ -13,7 +18,10 @@ from typing import Callable, Tuple
 
 import torch
 
-from mpp_cnn_rs_object_detection_torch.mpp.state import PointsState
+from mpp_cnn_rs_object_detection_torch.mpp.state import (
+    PointsState,
+    expand_lanes,
+)
 from mpp_cnn_rs_object_detection_torch.ops.geometry import (
     marks_to_poly,
     quad_intersection_area_matrix,
@@ -55,16 +63,31 @@ NO_CALIBRATION_SPEC = EnergySpec(
 
 @dataclass
 class EnergyMaps:
-    """Device-resident per-scene energy inputs."""
+    """Device-resident per-scene energy inputs; the chain stacks them on
+    a leading lane axis ([B,])."""
 
-    position: torch.Tensor    # (H, W) = -2 * (detection_map - threshold)
-    mark_maps: torch.Tensor   # (3, H, W, C) per-mark energy maps
-    map_vmin: torch.Tensor    # (3,)
-    map_vmax: torch.Tensor    # (3,)
-    map_cyclic: torch.Tensor  # (3,) bool
-    min_area: torch.Tensor    # scalar
-    max_area: torch.Tensor    # scalar
-    target_ratio: torch.Tensor  # scalar
+    position: torch.Tensor    # ([B,] H, W) = -2 * (detection_map - thr)
+    mark_maps: torch.Tensor   # ([B,] 3, H, W, C) per-mark energy maps
+    map_vmin: torch.Tensor    # ([B,] 3)
+    map_vmax: torch.Tensor    # ([B,] 3)
+    map_cyclic: torch.Tensor  # ([B,] 3) bool
+    min_area: torch.Tensor    # ([B,])
+    max_area: torch.Tensor    # ([B,])
+    target_ratio: torch.Tensor  # ([B,])
+
+
+def lane_view(v: torch.Tensor, ndim: int, trailing: int = 0) -> torch.Tensor:
+    """Per-lane values ``v`` ((B,), then ``trailing`` axes of their own)
+    viewed to broadcast against an ``ndim``-axis tensor led by the same
+    lanes: a (B,) scalar per lane against (B, K) points becomes (B, 1)."""
+    cut = v.ndim - trailing
+    return v.reshape(v.shape[:cut] + (1,) * (ndim - v.ndim) + v.shape[cut:])
+
+
+def _lane_index(n_lanes: int, ndim: int, device) -> torch.Tensor:
+    """arange(B) shaped to index the lane axis of ``ndim``-axis indices."""
+    return torch.arange(n_lanes, device=device).reshape(
+        (n_lanes,) + (1,) * (ndim - 1))
 
 
 def stack_param_dists(param_dist_maps, pad_hw=None, device=None
@@ -128,22 +151,28 @@ def bilinear_weights(x, y, h: int, w: int):
     return ((x0, y0), (x0, y1), (x1, y0), (x1, y1)), wts
 
 
-def position_lookup(position, xy, h: int, w: int) -> torch.Tensor:
-    """Bilinear detection-energy lookup at continuous (..., 2) centers."""
+def position_lookup(position, xy, h: int, w: int, lane) -> torch.Tensor:
+    """Bilinear detection-energy lookup of lane b's (H, W) map (``position``
+    (B, H, W)) at its continuous centers ``xy`` (B, ..., 2); ``lane`` is
+    ``_lane_index`` for ``xy``."""
     idx, wts = bilinear_weights(xy[..., 0], xy[..., 1], h, w)
     out = None
     for (i, j), wt in zip(idx, wts):
-        term = wt * position[i, j]
+        term = wt * position[lane, i, j]
         out = term if out is None else out + term
     return out
 
 
 def mark_lookup_interp(mark_maps, xy, marks, vmin, vmax, cyclic,
-                       h: int, w: int) -> torch.Tensor:
+                       h: int, w: int, lane) -> torch.Tensor:
     """Tri-linear per-mark energy lookup (bilinear in space, linear between
-    adjacent bin centers, cyclic wrap for the angle): (..., 3)."""
+    adjacent bin centers, cyclic wrap for the angle) of lane b's maps
+    (``mark_maps`` (B, 3, H, W, C), ranges (B, 3)) at its points (``xy``
+    (B, ..., 2), ``marks`` (B, ..., 3)): (B, ..., 3)."""
     idx, wts = bilinear_weights(xy[..., 0], xy[..., 1], h, w)
     n_cls = mark_maps.shape[-1]
+    vmin, vmax, cyclic = (lane_view(v, marks.ndim, 1)
+                          for v in (vmin, vmax, cyclic))
     rng = vmax - vmin
     step = rng / n_cls
     val = torch.where(cyclic, ((marks - vmin) % rng) + vmin, marks)
@@ -158,8 +187,8 @@ def mark_lookup_interp(mark_maps, xy, marks, vmin, vmax, cyclic,
     for m in range(3):
         v0 = v1 = None
         for (i, j), wt in zip(idx, wts):
-            a = wt * mark_maps[m, i, j, k0c[..., m]]
-            b = wt * mark_maps[m, i, j, k1c[..., m]]
+            a = wt * mark_maps[lane, m, i, j, k0c[..., m]]
+            b = wt * mark_maps[lane, m, i, j, k1c[..., m]]
             v0 = a if v0 is None else v0 + a
             v1 = b if v1 is None else v1 + b
         out.append((1.0 - t[..., m]) * v0 + t[..., m] * v1)
@@ -167,11 +196,13 @@ def mark_lookup_interp(mark_maps, xy, marks, vmin, vmax, cyclic,
 
 
 def unary_terms(maps: EnergyMaps, xy, marks):
-    """(position energy (...,), per-mark energies (..., 3)) at (xy, marks)."""
-    h, w = maps.position.shape
-    pos = position_lookup(maps.position, xy, h, w)
+    """(position energy (B, ...), per-mark energies (B, ..., 3)) at lane
+    b's (xy, marks) in lane b's maps."""
+    h, w = maps.position.shape[-2:]
+    lane = _lane_index(xy.shape[0], xy.ndim - 1, xy.device)
+    pos = position_lookup(maps.position, xy, h, w, lane)
     mark = mark_lookup_interp(maps.mark_maps, xy, marks, maps.map_vmin,
-                              maps.map_vmax, maps.map_cyclic, h, w)
+                              maps.map_vmax, maps.map_cyclic, h, w, lane)
     return pos, mark
 
 
@@ -179,7 +210,7 @@ def data_columns(state: PointsState, maps: EnergyMaps, spec: EnergySpec):
     pos, mark_e = unary_terms(maps, state.xy, state.marks)
     if spec.shape_mode == "mean":
         return [pos, mark_e.mean(dim=-1)]
-    return [pos, mark_e[:, 0], mark_e[:, 1], mark_e[:, 2]]
+    return [pos, mark_e[..., 0], mark_e[..., 1], mark_e[..., 2]]
 
 
 def pair_terms(state: PointsState, spec: EnergySpec):
@@ -217,7 +248,8 @@ def energy_vectors(state: PointsState, maps: EnergyMaps, spec: EnergySpec
     area = rect_area(state.marks[:, 0], state.marks[:, 1])
     area_prior = torch.clamp(
         torch.maximum(maps.min_area - area, area - maps.max_area), min=0.0)
-    cols = list(data_columns(state, maps, spec))
+    cols = [c[0] for c in data_columns(expand_lanes(state, 1),
+                                       expand_lanes(maps, 1), spec)]
     cols.extend([overlap_red, align_red, area_prior])
     if spec.use_ratio_prior:
         cols.append(torch.abs(maps.target_ratio - state.marks[:, 1]))

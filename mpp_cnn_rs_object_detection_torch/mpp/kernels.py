@@ -40,7 +40,8 @@ BASE_KERNEL_WEIGHTS = {
 
 @dataclass
 class KernelData:
-    """Device-resident sampling inputs for one scene."""
+    """Device-resident sampling inputs for one scene (the chain stacks
+    them on a leading lane axis, ``mpp/state.py``)."""
 
     birth_cdf: torch.Tensor          # (H*W,) cumsum of the normalised map
     log_birth_density: torch.Tensor  # (H, W)
@@ -117,18 +118,15 @@ def _log(x):
     return torch.log(x + EPS)
 
 
-def _class_to_value(kd: KernelData, mark_idx, cls) -> torch.Tensor:
-    n_cls = kd.mark_dists.shape[-1]
-    step = (kd.map_vmax[mark_idx] - kd.map_vmin[mark_idx]) / n_cls
-    return kd.map_vmin[mark_idx] + cls.float() * step
+def _class_to_value(vmin, vmax, n_cls: int, cls) -> torch.Tensor:
+    """Bin left edge of ``cls`` for ranges ``vmin``/``vmax`` broadcast
+    against it."""
+    return vmin + cls.float() * ((vmax - vmin) / n_cls)
 
 
-def _value_to_class(kd: KernelData, mark_idx, value) -> torch.Tensor:
-    n_cls = kd.mark_dists.shape[-1]
-    vmin, vmax = kd.map_vmin[mark_idx], kd.map_vmax[mark_idx]
+def _value_to_class(vmin, vmax, cyclic, n_cls: int, value) -> torch.Tensor:
     rng = vmax - vmin
-    val = torch.where(kd.map_cyclic[mark_idx], ((value - vmin) % rng) + vmin,
-                      value)
+    val = torch.where(cyclic, ((value - vmin) % rng) + vmin, value)
     cls = torch.floor((val - vmin) / (rng / n_cls)).long()
     return torch.clamp(cls, 0, n_cls - 1)
 

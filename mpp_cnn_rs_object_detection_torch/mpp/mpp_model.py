@@ -6,23 +6,26 @@ exact-scene path:
   - ``MPPModel(config, load=True)`` reads the trained combiner and the
     calibration from the model store; ``infer(subset)`` runs the CNN
     inference the dataset lacks (``ensure_cnn_inference``), assembles each
-    image's maps from the result pickles, runs the exact chains (all pending
-    scenes at one shared bucket with ``batch_scenes``, with the segment
-    checkpoint and the config's stopping block), and exports every scored
-    point of the final configurations as they come -- scores divided by
-    ``max_score``, no NMS -- to ``NNNN_results.pkl`` and the DOTA OBB
+    image's maps from the result pickles, runs the exact chains -- all
+    pending scenes as one batched program with ``batch_scenes``, else one
+    scene at a time (loaded, run, exported and freed per turn), with the
+    segment checkpoint, the config's stopping block, restarts and polish --
+    and exports every scored point of the final configurations -- scores
+    divided by ``max_score``, no NMS, and the default-off refine, score
+    blend and backfill -- to ``NNNN_results.pkl`` and the DOTA OBB
     translations (plain, and ``-SV`` with large vehicles difficult);
     ``eval()`` computes AP at each IoU threshold;
   - ``SceneInference`` runs the same models on in-memory images.
 
 Not ported: calibration and weight training (``ROADMAP.md`` item 9), the
-tiled scene mode (item 10), the default-off scoring extensions and restarts
+tiled scene mode (item 10), the superstep's split/merge and move switch
 (item 11), the meshes (item 15) and the detection/GT overlay PNGs (item
 16); a config that turns one on raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -32,6 +35,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from scipy.ndimage import maximum_filter
+from scipy.spatial import cKDTree
 
 from mpp_cnn_rs_object_detection_torch.device import resolve_device
 from mpp_cnn_rs_object_detection_torch.metrics.dota_eval import dota_eval
@@ -59,9 +64,11 @@ from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
     ImageWMaps,
     load_image_w_maps,
 )
+from mpp_cnn_rs_object_detection_torch.mpp.refine import snap_centers_to_map
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import RJMCMCParams
 from mpp_cnn_rs_object_detection_torch.mpp.scene import (
     SceneResult,
+    run_exact_scene,
     run_exact_scenes_batched,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
@@ -86,12 +93,7 @@ MODELS_ROOT = os.path.join(REPO_ROOT, "artifacts", "models_storage")
 CONFIG_DIR = os.path.join(REPO_ROOT, "model_configs", "mpp")
 # config switches of the JAX MPPModel.infer that the port does not have,
 # with the value that leaves them off and the ROADMAP.md item that ports them
-_INFERENCE_OFF = {
-    "refine_centers": (False, 11), "score_map_blend": (0.0, 11),
-    "backfill_threshold": (0.0, 11), "restarts": (1, 11),
-    "polish_steps": (0, 11), "scene_mesh": (False, 15),
-    "batch_mesh": (False, 15),
-}
+_INFERENCE_OFF = {"scene_mesh": (False, 15), "batch_mesh": (False, 15)}
 _RJMCMC_OFF = {"superstep_split_merge": (False, 11),
                "superstep_move_switch": (False, 11)}
 
@@ -176,21 +178,30 @@ class SceneInference:
 
     def run_scenes(self, datas: List[ImageWMaps], seeds: Sequence[int],
                    max_segments: Optional[int] = None) -> List[SceneResult]:
+        """The scenes' chains as one batch, or one scene at a time when the
+        config asks for restarts (as ``MPPModel.infer`` runs them)."""
         check_inference_config(self.config)
+        opts = dict(max_segments=max_segments, device=self.device,
+                    **chain_options(self.config))
+        restarts = int(self.config["inference"].get("restarts", 1))
+        if restarts > 1:
+            return [run_exact_scene(d, self.setup, self.comb, self.params,
+                                    seed=s, restarts=restarts, **opts)
+                    for d, s in zip(datas, seeds)]
         return run_exact_scenes_batched(
             datas, self.setup, self.comb, self.params, seeds=list(seeds),
-            max_segments=max_segments, device=self.device,
-            **chain_options(self.config))
+            **opts)
 
 
 def chain_options(config: Dict) -> Dict:
-    """``run_exact_scenes_batched``'s options from an MPP config."""
+    """The exact chain's options from an MPP config (both entry points)."""
     inf = config["inference"]
     rj = inf["rjmcmc_params"]
     return dict(capacity=config.get("capacity", 256),
                 segment_size=int(inf.get("segment_size", 4096)),
                 data_moves=bool(rj.get("superstep_data_moves", True)),
-                stopping=stopping_from_config(rj.get("stopping")))
+                stopping=stopping_from_config(rj.get("stopping")),
+                polish_steps=int(inf.get("polish_steps", 0)))
 
 
 def check_inference_config(config: Dict) -> None:
@@ -209,14 +220,91 @@ def check_inference_config(config: Dict) -> None:
                     f"(ROADMAP.md item {item})")
 
 
-def export_detections(result: SceneResult, max_score: float
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _mark_probs_at(param_dist_maps, rows, cols) -> np.ndarray:
+    """The (3, n, C) mark distributions at pixels (rows, cols), as float64
+    on the host: one gather and one transfer for the stacked maps on the
+    device."""
+    if isinstance(param_dist_maps, torch.Tensor):
+        d = param_dist_maps
+        at = d[:, torch.as_tensor(rows, device=d.device),
+               torch.as_tensor(cols, device=d.device)]
+        return at.cpu().numpy().astype(np.float64)
+    return np.stack([_host(d[rows, cols]).astype(np.float64)
+                     for d in param_dist_maps])
+
+
+def extend_detections(centers: np.ndarray, marks: np.ndarray,
+                      scores: np.ndarray, data: ImageWMaps, inference: Dict,
+                      max_score: float
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The export-time extensions of the JAX ``MPPModel.infer``, each off by
+    default: ``refine_centers`` snaps centers to their detection-map blob;
+    ``score_map_blend`` w ranks by ``(papangelou / max_score + w *
+    map(center)) / (1 + w)``; ``backfill_threshold`` appends the map's
+    local maxima (5 x 5, at or above the threshold) farther than 4 px from
+    every detection, with posterior-mean marks (the angle's circular mean
+    on the doubled circle) and scores below every chain detection's."""
+    refine = bool(inference.get("refine_centers", False))
+    blend_w = float(inference.get("score_map_blend", 0.0))
+    bf_thr = float(inference.get("backfill_threshold", 0.0))
+    if not refine and blend_w <= 0.0 and bf_thr <= 0.0:
+        return centers, marks, scores
+    dm = _host(data.detection_map)
+    if refine:
+        centers = snap_centers_to_map(centers, dm)
+    if blend_w > 0.0 and len(centers):
+        ij = np.clip(np.round(centers).astype(int), 0,
+                     np.array(dm.shape) - 1)
+        scores = ((scores / max_score + blend_w * dm[ij[:, 0], ij[:, 1]])
+                  / (1.0 + blend_w) * max_score)
+    if bf_thr > 0.0:
+        peaks = (dm == maximum_filter(dm, size=5)) & (dm >= bf_thr)
+        pc = np.argwhere(peaks).astype(np.float32)
+        if len(pc) and len(centers):
+            dmin, _ = cKDTree(centers).query(pc, k=1)
+            pc = pc[dmin > 4.0]
+        if len(pc):
+            ijb = pc.astype(int)
+            probs_all = _mark_probs_at(data.param_dist_maps, ijb[:, 0],
+                                       ijb[:, 1])
+            cols = []
+            for m, probs in zip(data.mappings, probs_all):
+                centers_v = m.class_to_center_value(
+                    np.arange(probs.shape[-1])).astype(np.float64)
+                if m.is_cyclic:
+                    # the angle lives on [0, pi): the doubled circle
+                    z = (probs * np.exp(2j * centers_v)).sum(-1)
+                    cols.append((np.angle(z) / 2.0) % np.pi)
+                else:
+                    cols.append((probs * centers_v).sum(-1)
+                                / np.maximum(probs.sum(-1), 1e-9))
+            marks_bf = np.stack(cols, axis=-1).astype(np.float32)
+            scores_bf = (0.2 * dm[ijb[:, 0], ijb[:, 1]] / (1.0 + blend_w)
+                         * max_score)
+            centers = np.concatenate([centers, pc])
+            marks = np.concatenate([marks, marks_bf])
+            scores = np.concatenate([scores, scores_bf])
+    return centers, marks, scores
+
+
+def export_detections(result: SceneResult, max_score: float,
+                      data: Optional[ImageWMaps] = None,
+                      inference: Optional[Dict] = None
                       ) -> Dict[str, np.ndarray]:
     """A scene's final configuration as ``MPPModel.infer`` exports it:
-    every point, its (short, long, angle) rectangle and polygon, and the
-    papangelou score, also divided by ``max_score`` for the DOTA files."""
+    every point (with ``data`` and the config's ``inference`` block, after
+    ``extend_detections``), its (short, long, angle) rectangle and polygon,
+    and the score, also divided by ``max_score`` for the DOTA files."""
     centers = np.asarray(result.centers).reshape(-1, 2)
     marks = np.asarray(result.marks).reshape(-1, 3)
     scores = np.asarray(result.scores).reshape(-1)
+    if data is not None and inference:
+        centers, marks, scores = extend_detections(
+            centers, marks, scores, data, inference, max_score)
     b_long = 2.0 * marks[:, 0] / (1.0 + marks[:, 1])
     params = np.stack([b_long * marks[:, 1], b_long, marks[:, 2]], axis=-1)
     polys = rect_to_poly_np(centers, params[:, 0], params[:, 1],
@@ -309,7 +397,8 @@ class MPPModel(BaseModel):
         # ensure_cnn_inference), "load" of the maps, "chain", "export" and
         # "eval"
         self.seconds: Dict[str, float] = {}
-        # the chain results of the last infer, by image id
+        # what the last infer exported, by image id: host arrays and counts
+        # (no chain state, no maps)
         self.results: Dict[int, SceneResult] = {}
 
     def _image_ids(self, subset: str) -> List[int]:
@@ -321,64 +410,67 @@ class MPPModel(BaseModel):
                                  self.position_model, self.shape_model)
 
     def infer(self, subset: str = "val", overwrite: bool = True, **kwargs):
+        """Chains and export of every val scene. With ``batch_scenes`` (no
+        restarts, several pending scenes) the pending scenes are loaded and
+        run as one batch; otherwise each scene is loaded, run, exported and
+        freed in its turn, so one scene's maps are in memory at a time.
+        ``results`` keeps what was exported per scene, on the host."""
         check_inference_config(self.config)
         self.seconds = ensure_cnn_inference(
             self.dataset, subset, self.position_model, self.shape_model,
             self.device)
+        self.seconds.update(load=0.0, chain=0.0, export=0.0)
         results_dir = get_inference_path(
             model_name=os.path.split(self.save_path)[1],
             dataset=self.dataset, subset=subset)
         make_if_not_exist(results_dir, recursive=True)
-        dota_trlt = DOTAResultsTranslator(
-            self.dataset, subset, results_dir, det_type="obb",
-            all_classes=["vehicle"])
-        dota_trlt_sv = DOTAResultsTranslator(
-            self.dataset, subset, results_dir, det_type="obb",
-            all_classes=["vehicle"], postfix="-SV")
-
+        translators = [
+            DOTAResultsTranslator(self.dataset, subset, results_dir,
+                                  det_type="obb", all_classes=["vehicle"]),
+            DOTAResultsTranslator(self.dataset, subset, results_dir,
+                                  det_type="obb", all_classes=["vehicle"],
+                                  postfix="-SV")]
         inf = self.config["inference"]
-        max_score = inf.get("max_score", 4.0)
         params = rjmcmc_params_from_config(self.config)
+        options = chain_options(self.config)
+        restarts = int(inf.get("restarts", 1))
 
         ids = self._image_ids(subset)
         pending = [pid for pid in ids if overwrite or not os.path.exists(
             os.path.join(results_dir, f"{pid:04}_results.pkl"))]
-        t_stage = time.perf_counter()
-        datas = {pid: self._load_image(pid, subset) for pid in pending}
-        self.seconds["load"] = time.perf_counter() - t_stage
-        t_stage = time.perf_counter()
-        if inf.get("batch_scenes") and len(pending) > 1:
+        self.results = {}
+        batch: Dict[int, Tuple[ImageWMaps, SceneResult]] = {}
+        if inf.get("batch_scenes") and restarts == 1 and len(pending) > 1:
             # every pending scene at one shared bucket and capacity
-            groups = [(pending, "batched_chains.ck.npz")]
-        else:
-            groups = [([pid], f"{pid:04}_chains.ck.npz") for pid in pending]
-        results: Dict[int, SceneResult] = {}
-        for pids, ck_name in groups:
+            t_stage = time.perf_counter()
+            datas = [self._load_image(pid, subset) for pid in pending]
+            self.seconds["load"] += time.perf_counter() - t_stage
+            t_stage = time.perf_counter()
             out = run_exact_scenes_batched(
-                [datas[pid] for pid in pids], self.energy_setup,
-                self.energy_model, params, seeds=pids, device=self.device,
-                checkpoint_path=os.path.join(results_dir, ck_name),
-                **chain_options(self.config))
-            results.update(zip(pids, out))
-        self.seconds["chain"] = time.perf_counter() - t_stage
-        self.results = results
+                datas, self.energy_setup, self.energy_model, params,
+                seeds=pending, device=self.device,
+                checkpoint_path=os.path.join(results_dir,
+                                             "batched_chains.ck.npz"),
+                **options)
+            self.seconds["chain"] += time.perf_counter() - t_stage
+            batch = dict(zip(pending, zip(datas, out)))
+            del datas, out
 
-        t_stage = time.perf_counter()
         ann_paths = dict(zip(ids, fetch_data_paths(
             self.dataset, subset, metadata=False)["annotations"]))
         for patch_id in ids:
             out_pkl = os.path.join(results_dir, f"{patch_id:04}_results.pkl")
-            if patch_id not in results:
+            if patch_id not in pending:
                 # resume: replay the existing result pickle into the freshly
                 # rewritten DOTA translations
                 logging.info(f"{out_pkl} exists, replaying into translations")
                 with open(ann_paths[patch_id], "rb") as f:
                     labels = pickle.load(f)
                 prev = load_results(out_pkl)
-                self._add_gt(dota_trlt, dota_trlt_sv, patch_id, labels)
+                self._add_gt(*translators, patch_id, labels)
                 prev_scores = (np.asarray(prev["detection_score"]).reshape(-1)
-                               / max_score)
-                for trlt in (dota_trlt, dota_trlt_sv):
+                               / inf.get("max_score", 4.0))
+                for trlt in translators:
                     trlt.add_detections(
                         image_id=patch_id, scores=prev_scores,
                         polygons=np.asarray(prev["detection"]).reshape(
@@ -386,35 +478,64 @@ class MPPModel(BaseModel):
                         flip_coor=True,
                         class_names=["vehicle"] * len(prev_scores))
                 continue
-            data = datas[patch_id]
-            det = export_detections(results[patch_id], max_score)
-            self._add_gt(dota_trlt, dota_trlt_sv, patch_id, data.labels)
-            scores01 = det["scores01"]
-            if len(scores01) and scores01.max() > 1.0:
-                logging.warning(f"pred score exceeds max_score "
-                                f"({det['scores'].max():.2f} > {max_score})")
-            for trlt in (dota_trlt, dota_trlt_sv):
-                trlt.add_detections(
-                    image_id=patch_id, scores=scores01,
-                    polygons=det["polygons"], flip_coor=True,
-                    class_names=["vehicle"] * len(scores01))
-            with open(out_pkl, "wb") as f:
-                pickle.dump(
-                    {
-                        "detection": det["polygons"],
-                        "detection_type": "poly",
-                        "detection_center": det["centers"],
-                        "detection_score": det["scores"],
-                        "detection_params": det["params"],
-                        "detection_marks": det["marks"],
-                        "mappings": data.mappings,
-                    },
-                    f,
-                )
-        dota_trlt.save()
-        dota_trlt_sv.save()
-        self.seconds["export"] = time.perf_counter() - t_stage
+            self._infer_scene(patch_id, subset, batch.pop(patch_id, None),
+                              params, options, restarts, results_dir,
+                              translators)
+        for trlt in translators:
+            trlt.save()
         logging.info("saved dota translation")
+
+    def _infer_scene(self, patch_id: int, subset: str, loaded, params,
+                     options: Dict, restarts: int, results_dir: str,
+                     translators) -> None:
+        """One pending scene: its chain (unless the batch ran it), its
+        export, and the host-side record in ``results``. The scene's maps
+        and chain live in this call's frame only."""
+        if loaded is None:
+            t_stage = time.perf_counter()
+            data = self._load_image(patch_id, subset)
+            self.seconds["load"] += time.perf_counter() - t_stage
+            t_stage = time.perf_counter()
+            result = run_exact_scene(
+                data, self.energy_setup, self.energy_model, params,
+                seed=patch_id, device=self.device, restarts=restarts,
+                checkpoint_path=os.path.join(results_dir,
+                                             f"{patch_id:04}_chains.ck.npz"),
+                **options)
+            self.seconds["chain"] += time.perf_counter() - t_stage
+        else:
+            data, result = loaded
+        t_stage = time.perf_counter()
+        inf = self.config["inference"]
+        max_score = inf.get("max_score", 4.0)
+        det = export_detections(result, max_score, data, inf)
+        self._add_gt(*translators, patch_id, data.labels)
+        scores01 = det["scores01"]
+        if len(scores01) and scores01.max() > 1.0:
+            logging.warning(f"pred score exceeds max_score "
+                            f"({det['scores'].max():.2f} > {max_score})")
+        for trlt in translators:
+            trlt.add_detections(
+                image_id=patch_id, scores=scores01, polygons=det["polygons"],
+                flip_coor=True, class_names=["vehicle"] * len(scores01))
+        with open(os.path.join(results_dir, f"{patch_id:04}_results.pkl"),
+                  "wb") as f:
+            pickle.dump(
+                {
+                    "detection": det["polygons"],
+                    "detection_type": "poly",
+                    "detection_center": det["centers"],
+                    "detection_score": det["scores"],
+                    "detection_params": det["params"],
+                    "detection_marks": det["marks"],
+                    "mappings": data.mappings,
+                },
+                f,
+            )
+        self.results[patch_id] = dataclasses.replace(
+            result, centers=det["centers"], marks=det["marks"],
+            scores=det["scores"], chain=None)
+        self.seconds["export"] += time.perf_counter() - t_stage
 
     @staticmethod
     def _add_gt(dota_trlt, dota_trlt_sv, patch_id: int, labels: Dict):

@@ -2,8 +2,12 @@
 
 Counterpart of ``RJMCMCParams``, ``EnergyCache``, ``build_cache``,
 ``update_cache``, ``energy_from_cache``, ``ChainStats`` and ``papangelou`` in
-``mpp_cnn_rs_object_detection_tpu/mpp/rjmcmc.py`` (CNN data term). The
-sequential scan sampler is not ported in this slice.
+``mpp_cnn_rs_object_detection_tpu/mpp/rjmcmc.py`` (CNN data term).
+The chain's functions (``build_cache``, ``energy_from_cache`` and their
+helpers) take states, caches and maps with a leading lane axis B
+(``mpp/state.py``); ``update_cache`` and ``papangelou`` take one
+configuration and add a lane of one at their boundary. The sequential scan
+sampler is not ported in this slice.
 """
 
 from __future__ import annotations
@@ -22,9 +26,14 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
     EnergyMaps,
     EnergySpec,
     data_columns,
+    lane_view,
     unary_terms,
 )
-from mpp_cnn_rs_object_detection_torch.mpp.state import PointsState
+from mpp_cnn_rs_object_detection_torch.mpp.state import (
+    PointsState,
+    expand_lanes,
+    lane,
+)
 from mpp_cnn_rs_object_detection_torch.ops.geometry import (
     marks_to_poly,
     quad_intersection_area_matrix,
@@ -78,47 +87,63 @@ class RJMCMCParams:
 
 @dataclass
 class EnergyCache:
-    """Pair/unary bookkeeping carried through the chain."""
+    """Pair/unary bookkeeping carried through the chain, per lane (B,
+    leading; ``update_cache`` takes one lane's, without it)."""
 
-    dist: torch.Tensor     # (K, K) center distances
-    overlap: torch.Tensor  # (K, K) intersection / min-area ratios
-    align: torch.Tensor    # (K, K) 1 - |cos dangle| - rewarding
-    pos_e: torch.Tensor    # (K,)
-    mark_e: torch.Tensor   # (K, 3)
-    polys: torch.Tensor    # (K, 4, 2) (stale at dead slots -- masked)
-    areas: torch.Tensor    # (K,)
+    dist: torch.Tensor     # ([B,] K, K) center distances
+    overlap: torch.Tensor  # ([B,] K, K) intersection / min-area ratios
+    align: torch.Tensor    # ([B,] K, K) 1 - |cos dangle| - rewarding
+    pos_e: torch.Tensor    # ([B,] K)
+    mark_e: torch.Tensor   # ([B,] K, 3)
+    polys: torch.Tensor    # ([B,] K, 4, 2) (stale at dead slots -- masked)
+    areas: torch.Tensor    # ([B,] K)
 
 
 @dataclass
 class ChainStats:
-    accepted: torch.Tensor       # (n_kernels,) (superstep total in slot 0)
+    """Per lane: (B, n_kernels) counts with the superstep totals in slot 0,
+    (B,) final energies and point counts; one temperature for all lanes."""
+
+    accepted: torch.Tensor
     proposed: torch.Tensor
-    final_energy: torch.Tensor   # scalar
+    final_energy: torch.Tensor
     final_n_points: torch.Tensor
     final_temperature: float
 
 
 def pair_rows(xy_u, marks_u, polys_u, areas_u, state: PointsState,
               polys, areas, spec: EnergySpec):
-    """dist / overlap / align rows of m points against all K: (m, K) each."""
-    dist = torch.linalg.vector_norm(state.xy[None] - xy_u[:, None], dim=-1)
+    """dist / overlap / align rows of m points against all K of their
+    lane: (B, m, K) each."""
+    dist = torch.linalg.vector_norm(
+        state.xy[..., None, :, :] - xy_u[..., :, None, :], dim=-1)
     inter = quad_intersection_area_matrix(polys_u, polys)
-    overlap = inter / (torch.minimum(areas[None, :], areas_u[:, None]) + 1e-6)
-    dangle = marks_u[:, 2][:, None] - state.marks[None, :, 2]
+    overlap = inter / (torch.minimum(areas[..., None, :],
+                                     areas_u[..., :, None]) + 1e-6)
+    dangle = marks_u[..., :, None, 2] - state.marks[..., None, :, 2]
     align = 1.0 - torch.abs(torch.cos(dangle)) - float(spec.rewarding_align)
     return dist, overlap, align
 
 
-def build_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec
-                ) -> EnergyCache:
-    """Full O(K^2) cache build (once per chain)."""
+def build_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
+                safe_dist: bool = False) -> EnergyCache:
+    """Full O(K^2) cache build of B lanes (once per chain segment run).
+
+    ``safe_dist``: distances as ``sqrt(sum(d^2) + 1e-12)``, as the JAX
+    package's polish builds them (``mpp/polish.py``): differentiable at the
+    zero diagonal; they shift by < 1e-6 px."""
     m = state.marks
-    polys = marks_to_poly(state.xy, m[:, 0], m[:, 1], m[:, 2])
-    areas = rect_area(m[:, 0], m[:, 1])
-    dist = torch.linalg.vector_norm(state.xy[:, None] - state.xy[None], dim=-1)
+    polys = marks_to_poly(state.xy, m[..., 0], m[..., 1], m[..., 2])
+    areas = rect_area(m[..., 0], m[..., 1])
+    diff = state.xy[..., :, None, :] - state.xy[..., None, :, :]
+    if safe_dist:
+        dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+    else:
+        dist = torch.linalg.vector_norm(diff, dim=-1)
     inter = quad_intersection_area_matrix(polys, polys)
-    overlap = inter / (torch.minimum(areas[:, None], areas[None, :]) + 1e-6)
-    dangle = m[:, None, 2] - m[None, :, 2]
+    overlap = inter / (torch.minimum(areas[..., :, None],
+                                     areas[..., None, :]) + 1e-6)
+    dangle = m[..., :, None, 2] - m[..., None, :, 2]
     align = 1.0 - torch.abs(torch.cos(dangle)) - float(spec.rewarding_align)
     pos_e, mark_e = unary_terms(maps, state.xy, state.marks)
     return EnergyCache(dist=dist, overlap=overlap, align=align, pos_e=pos_e,
@@ -127,7 +152,8 @@ def build_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec
 
 def update_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
                  cache: EnergyCache, slot: int) -> EnergyCache:
-    """Refresh row + column ``slot`` after a birth/move of that slot."""
+    """Refresh row + column ``slot`` of one configuration's cache after
+    a birth/move of that slot."""
     s = slice(slot, slot + 1)
     mk = state.marks[s]
     poly_s = marks_to_poly(state.xy[s], mk[:, 0], mk[:, 1], mk[:, 2])
@@ -144,7 +170,8 @@ def update_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
         mat[slot, :] = row[0]
         mat[:, slot] = row[0]
         mats.append(mat)
-    pos_s, mark_s = unary_terms(maps, state.xy[s], mk)
+    pos_s, mark_s = (x[0] for x in unary_terms(
+        expand_lanes(maps, 1), state.xy[None, s], mk[None]))
     pos_e = cache.pos_e.clone()
     mark_e = cache.mark_e.clone()
     pos_e[s] = pos_s
@@ -157,16 +184,20 @@ def pair_masks(state: PointsState, dist: torch.Tensor, spec: EnergySpec):
     """(overlap mask, align mask): alive pairs within each radius."""
     k = state.capacity
     eye = torch.eye(k, dtype=torch.bool, device=dist.device)
-    alive_pair = state.alive[:, None] & state.alive[None, :] & ~eye
+    alive_pair = (state.alive[..., :, None] & state.alive[..., None, :]
+                  & ~eye)
     return (alive_pair & (dist <= spec.overlap_max_dist),
             alive_pair & (dist <= spec.align_max_dist))
 
 
 def vec_cols(spec: EnergySpec, maps: EnergyMaps, pos, mark3, ov, al, area,
              ratio_mark) -> torch.Tensor:
-    """A per-point energy vector in column order (batched or scalar)."""
+    """Per-point energy vectors in column order, for points (B, ...) of
+    B lanes; each lane's map scalars broadcast over its points."""
+    min_area = lane_view(maps.min_area, area.ndim)
+    max_area = lane_view(maps.max_area, area.ndim)
     area_prior = torch.clamp(
-        torch.maximum(maps.min_area - area, area - maps.max_area), min=0.0)
+        torch.maximum(min_area - area, area - max_area), min=0.0)
     cols = [pos]
     if spec.shape_mode == "mean":
         cols.append(mark3.mean(dim=-1))
@@ -174,7 +205,8 @@ def vec_cols(spec: EnergySpec, maps: EnergyMaps, pos, mark3, ov, al, area,
         cols.extend([mark3[..., 0], mark3[..., 1], mark3[..., 2]])
     cols.extend([ov, al, area_prior])
     if spec.use_ratio_prior:
-        cols.append(torch.abs(maps.target_ratio - ratio_mark))
+        cols.append(torch.abs(lane_view(maps.target_ratio, ratio_mark.ndim)
+                              - ratio_mark))
     return torch.stack(cols, dim=-1)
 
 
@@ -182,37 +214,40 @@ def reduced_pairs(cache: EnergyCache, ov_mask, al_mask, spec: EnergySpec):
     """Row-reduced overlap (max) and alignment (min if rewarding, else max)
     terms, 0 where a point has no interacting neighbour."""
     ov_red = torch.where(
-        ov_mask.any(dim=1),
-        torch.where(ov_mask, cache.overlap, -torch.inf).amax(dim=1), 0.0)
+        ov_mask.any(dim=-1),
+        torch.where(ov_mask, cache.overlap, -torch.inf).amax(dim=-1), 0.0)
     if spec.rewarding_align:
-        al = torch.where(al_mask, cache.align, torch.inf).amin(dim=1)
+        al = torch.where(al_mask, cache.align, torch.inf).amin(dim=-1)
     else:
-        al = torch.where(al_mask, cache.align, -torch.inf).amax(dim=1)
-    return ov_red, torch.where(al_mask.any(dim=1), al, 0.0)
+        al = torch.where(al_mask, cache.align, -torch.inf).amax(dim=-1)
+    return ov_red, torch.where(al_mask.any(dim=-1), al, 0.0)
 
 
 def energy_from_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
                       comb: EnergyCombiner, cache: EnergyCache
                       ) -> torch.Tensor:
-    """U(config) from the cached matrices (O(K^2) elementwise only)."""
+    """U of each lane's configuration from the cached matrices (O(K^2)
+    elementwise only): (B,)."""
     ov_mask, al_mask = pair_masks(state, cache.dist, spec)
     ov_red, al_red = reduced_pairs(cache, ov_mask, al_mask, spec)
     vec = vec_cols(spec, maps, cache.pos_e, cache.mark_e, ov_red, al_red,
-                   cache.areas, state.marks[:, 1])
-    vec = torch.where(state.alive[:, None], vec, 0.0)
-    return torch.where(state.alive, combine(comb, vec), 0.0).sum()
+                   cache.areas, state.marks[..., 1])
+    vec = torch.where(state.alive[..., None], vec, 0.0)
+    return torch.where(state.alive, combine(comb, vec), 0.0).sum(dim=-1)
 
 
 def papangelou(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
                comb: EnergyCombiner) -> torch.Tensor:
-    """Per-slot papangelou intensity ``exp(-(U(x) - U(x \\ u)))``.
+    """Per-slot papangelou intensity ``exp(-(U(x) - U(x \\ u)))`` of one
+    configuration.
 
     Removing u changes a neighbour's reduced pair term only when u was its
     arg-extremum, so per-row top-2 statistics give every leave-one-out
     energy vector in O(K^2)."""
     k = state.capacity
     dev = state.xy.device
-    cache = build_cache(state, maps, spec)
+    one_state, one_maps = expand_lanes(state, 1), expand_lanes(maps, 1)
+    cache = lane(build_cache(one_state, one_maps, spec), 0)
     ov_mask, al_mask = pair_masks(state, cache.dist, spec)
 
     def top2(values, mask, take_max: bool):
@@ -230,7 +265,7 @@ def papangelou(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
     ov_red = torch.where(ov_n > 0, ov1, 0.0)
     al_red = torch.where(al_n > 0, al1, 0.0)
 
-    dcols = data_columns(state, maps, spec)
+    dcols = [c[0] for c in data_columns(one_state, one_maps, spec)]
     area = rect_area(state.marks[:, 0], state.marks[:, 1])
     area_prior = torch.clamp(
         torch.maximum(maps.min_area - area, area - maps.max_area), min=0.0)

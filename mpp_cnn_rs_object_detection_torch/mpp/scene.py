@@ -5,11 +5,13 @@ Counterpart of the exact-scene part of
 shape bucket, initialise from the thresholded detection map, run ONE global
 cell-parallel chain in annealing segments over the full maps, then score
 every detection with its papangelou intensity. The superstep budget math is
-the JAX package's, verbatim, and so are the stopping check between segments
-and the segment checkpoint (``.ck.npz``: the batch's states, progress and a
-fingerprint of the budget; resumed when the fingerprint matches, removed at
-the end). Restarts, polish and the mesh are not ported; the batched entry
-point loops the per-scene chain at the batch's shared bucket and capacity.
+the JAX package's, verbatim, and so are the joint stopping check between
+segments and the segment checkpoint (``.ck.npz``: the lanes' states, the
+progress and a fingerprint of the budget; resumed when the fingerprint
+matches, removed at the end). The lanes of the chain are the scenes of a
+batch (``run_exact_scenes_batched``) or the restarts of one scene
+(``run_exact_scene``); either way one launch sequence per superstep serves
+them all. The mesh is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
 from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import EnergySetup
 from mpp_cnn_rs_object_detection_torch.mpp.image_data import ImageWMaps
 from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import CELL
+from mpp_cnn_rs_object_detection_torch.mpp.polish import polish_state
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
     EnergyCache,
     RJMCMCParams,
@@ -42,12 +45,16 @@ from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
 )
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
+    expand_lanes,
+    lane,
+    stack_lanes,
     state_from_arrays,
     state_to_arrays,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
     SegmentSummary,
     StoppingCondition,
+    batch_summary,
 )
 from mpp_cnn_rs_object_detection_torch.ops.nms import nms_distance
 from mpp_cnn_rs_object_detection_torch.parallel.sharded_scene import (
@@ -140,7 +147,9 @@ def superstep_budget(h: int, w: int, params: RJMCMCParams,
 
 @dataclass
 class ChainOutcome:
-    """The chain's final device state, kept for checks and diagnostics."""
+    """A scene's chain at its end, before any polish: its lane of the final
+    device state, the carried cache, the energy and the maps (views into
+    the batch), kept for checks and diagnostics."""
 
     state: PointsState
     cache: EnergyCache
@@ -160,45 +169,27 @@ class SceneResult:
     seconds: Dict[str, float] = field(default_factory=dict)
     chain: Optional[ChainOutcome] = None
     stopped: bool = False        # a stopping condition ended the anneal
+    lane_energies: List[float] = field(default_factory=list)  # restarts
+    best_lane: int = 0           # the restart lane kept
+    polish_energies: Optional[Tuple[float, float]] = None  # U before, after
 
 
-# the batched checkpoint's format tag, the fingerprint's first entry: the
-# JAX package writes the same file name into the same inference directory
-CHECKPOINT_FORMAT = 1.0
-CHECKPOINT_KEYS = {"xy", "marks", "alive", "done", "t0", "stopped",
-                   "fingerprint"}
+# the chain checkpoint's format tag, the fingerprint's first entry: the JAX
+# package writes files of the same names into the same inference directory
+# (format 1 kept progress per scene; format 2 holds the batch's single
+# progress, as the batch stops jointly)
+CHECKPOINT_FORMAT = 2.0
+CHECKPOINT_KEYS = {"xy", "marks", "alive", "done", "t0", "fingerprint"}
 
 
-@dataclass
-class ChainProgress:
-    """Where a scene's anneal stands between segments: what a checkpoint
-    stores per scene, and what a resumed run starts from."""
-
-    xy: np.ndarray       # (K, 2)
-    marks: np.ndarray    # (K, 3)
-    alive: np.ndarray    # (K,)
-    done: int = 0        # supersteps run
-    t0: float = 1.0      # temperature of the next superstep
-    stopped: bool = False
-
-    @classmethod
-    def of(cls, state: PointsState, done: int, t0: float,
-           stopped: bool = False) -> "ChainProgress":
-        return cls(xy=state.xy.cpu().numpy(), marks=state.marks.cpu().numpy(),
-                   alive=state.alive.cpu().numpy(), done=done, t0=t0,
-                   stopped=stopped)
-
-    def finished(self, total_super: int) -> bool:
-        return self.stopped or self.done >= total_super
-
-
-def segment_seed(seed: int, done: int) -> int:
+def segment_seed(seed: int, done: int, lane: int = 0) -> int:
     """The generator seed of the segment that starts at superstep ``done``
     of the chain seeded ``seed`` (the counterpart of JAX's
-    ``fold_in(PRNGKey(seed), done)``): a resumed chain draws what the
-    uninterrupted one would have."""
-    return int(np.random.SeedSequence([int(seed), int(done)])
-               .generate_state(1, np.uint64)[0])
+    ``fold_in(PRNGKey(seed), done)``; restart lane r > 0 folds in r too):
+    a resumed chain draws what the uninterrupted one would have, and lane 0
+    draws what a one-lane run draws."""
+    key = [int(seed), int(done)] + ([int(lane)] if lane else [])
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
 
 
 def _sync(device: torch.device) -> None:
@@ -237,102 +228,207 @@ def _capacity(h: int, w: int, capacity: int, n_init: int) -> int:
     return int(-(-cap // 64) * 64)
 
 
-def _run_prepared(data: ImageWMaps, c0, m0, orig_hw, setup: EnergySetup,
-                  comb: EnergyCombiner, params: RJMCMCParams, seed: int,
-                  cap: int, segment_size: int,
-                  max_segments: Optional[int], data_moves: bool,
-                  device: torch.device, prep_s: float,
-                  stopping: Optional[StoppingCondition] = None,
-                  resume: Optional[ChainProgress] = None,
-                  on_segment: Optional[Callable[[ChainProgress], None]] = None,
-                  ) -> SceneResult:
-    """The chain and scores of one prepared scene; ``prep_s`` is the time
-    its ``_prepare`` took, which ``seconds["prep"]`` includes.
+@dataclass
+class _Anneal:
+    """Where the lanes' anneal ended."""
 
-    ``stopping`` is checked after every segment but the last; ``resume``
-    starts the anneal where a checkpoint left it; ``on_segment`` receives
-    the progress after every segment (the checkpoint writer)."""
-    t_start = time.perf_counter()
-    h, w = data.shape
-    c0, m0 = c0[:cap], m0[:cap]
-    maps = setup.make_maps(data)
-    kd = setup.make_kernel_data(data, intensity=max(1, len(c0)))
-    budget = superstep_budget(h, w, params, segment_size)
-    done, t0, stopped = 0, float(params.t0), False
-    if resume is not None:
-        state = PointsState(
-            xy=torch.as_tensor(resume.xy, device=device),
-            marks=torch.as_tensor(resume.marks, device=device),
-            alive=torch.as_tensor(resume.alive, device=device))
-        done, t0, stopped = resume.done, resume.t0, resume.stopped
-    else:
-        state = state_from_arrays(c0, m0, capacity=cap, device=device)
-    gen = torch.Generator(device=device)
-    _sync(device)
-    t_prep = prep_s + time.perf_counter() - t_start
+    state: PointsState
+    cache: Optional[EnergyCache]
+    energy: Optional[torch.Tensor]  # (B,)
+    done: int
+    t0: float
+    stopped: bool
 
-    t_chain = time.perf_counter()
+
+def _anneal(state: PointsState, maps: EnergyMaps, kd, setup: EnergySetup,
+            comb: EnergyCombiner, budget: SuperstepBudget,
+            lane_seeds: Sequence[Tuple[int, int]], done: int, t0: float,
+            data_moves: bool, device: torch.device,
+            stopping: Optional[StoppingCondition],
+            max_segments: Optional[int],
+            on_segment: Optional[Callable[[PointsState, int, float], None]],
+            name: str) -> _Anneal:
+    """Segments of the laned chain from superstep ``done``: lane b's
+    generator is reseeded per segment from ``lane_seeds[b]`` = (seed,
+    restart lane). ``stopping`` is evaluated once per segment, jointly over
+    the lanes (``stopping.batch_summary``), so every lane stops at the same
+    superstep; ``on_segment(state, done, t0)`` follows every segment after
+    which the anneal goes on (the checkpoint writer)."""
+    gens = [torch.Generator(device=device) for _ in lane_seeds]
+    cache = energy = None
+    stopped = False
     segments = 0
-    cache, stats = None, None
     summaries: List[SegmentSummary] = []
     while done < budget.total_super and not stopped:
         if max_segments is not None and segments >= max_segments:
             break
         t_seg = time.perf_counter()
         n = min(budget.seg_super, budget.total_super - done)
-        gen.manual_seed(segment_seed(seed, done))
+        for g, (seed, r) in zip(gens, lane_seeds):
+            g.manual_seed(segment_seed(seed, done, r))
         state, cache, stats = run_exact_scene_chain(
-            gen, state, maps, setup.spec, comb, kd, n_supersteps=n, t0=t0,
+            gens, state, maps, setup.spec, comb, kd, n_supersteps=n, t0=t0,
             alpha_t=budget.alpha_super, t_target=budget.t_target,
             cache=cache, data_moves=data_moves)
+        energy = stats.final_energy
         done += n
         segments += 1
         t0 = max(float(t0 * budget.alpha_super ** n), budget.t_target)
         if stopping is not None:
-            summaries.append(SegmentSummary(
-                iter=done * budget.mps, energy=float(stats.final_energy),
-                n_points=int(stats.final_n_points), temperature=t0,
-                accept_rate=float(stats.accepted.sum())
-                / max(float(stats.proposed.sum()), 1.0),
+            summaries.append(batch_summary(
+                stats.final_energy.cpu().numpy(),
+                stats.final_n_points.cpu().numpy(),
+                stats.accepted.cpu().numpy(), stats.proposed.cpu().numpy(),
+                iter=done * budget.mps, temperature=t0,
                 seconds=time.perf_counter() - t_seg))
             stopped = done < budget.total_super and stopping.do_stop(
                 summaries)
             if stopped:
+                s = summaries[-1]
                 logging.info(
-                    f"scene {data.name}: stopping fired at superstep "
-                    f"{done}/{budget.total_super} (E={summaries[-1].energy:.2f}"
-                    f" acc={summaries[-1].accept_rate:.4f} T={t0:.4g})")
-        if on_segment is not None:
-            on_segment(ChainProgress.of(state, done, t0, stopped))
+                    f"{name}: stopping fired at superstep {done}/"
+                    f"{budget.total_super} (E={s.energy:.2f} "
+                    f"acc={s.accept_rate:.4f} T={t0:.4g})")
+        if on_segment is not None and done < budget.total_super \
+                and not stopped:
+            on_segment(state, done, t0)
+    return _Anneal(state=state, cache=cache, energy=energy, done=done, t0=t0,
+                   stopped=stopped)
+
+
+def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
+               params: RJMCMCParams, seeds: Sequence[int], restarts: int,
+               cap: int, segment_size: int, max_segments: Optional[int],
+               data_moves: bool, device: torch.device,
+               checkpoint_path: Optional[str],
+               stopping: Optional[StoppingCondition], polish_steps: int,
+               name: str) -> List[SceneResult]:
+    """The chains of prepared scenes, one lane per (scene, restart): scene
+    i's lanes are seeded ``seeds[i]``, each keeps its lane of lowest final
+    energy, is polished, and is scored by papangelou. A batch of scenes
+    stacks their maps; the restarts of one scene share its maps as views.
+
+    ``checkpoint_path``: after every segment the lanes' states, the single
+    progress (``done``, ``t0``) and a fingerprint of the budget (its
+    supersteps, segment, annealing, capacity, bucket, lane count and seeds)
+    go to this ``.npz``; a run that finds a matching file resumes there,
+    and the file is removed once the anneal has ended (budget spent or
+    stopping fired)."""
+    t_start = time.perf_counter()
+    n_scenes = len(prepared)
+    assert n_scenes == 1 or restarts == 1, "restarts run one scene at a time"
+    n_lanes = n_scenes * restarts
+    lane_seeds = [(int(seeds[i]), r) for i in range(n_scenes)
+                  for r in range(restarts)]
+    h, w = prepared[0][0].shape
+    budget = superstep_budget(h, w, params, segment_size)
+
+    def lane_data(i):
+        return prepared[i // restarts]
+
+    if restarts == 1:
+        maps = stack_lanes(lambda i: setup.make_maps(prepared[i][0]),
+                           n_lanes)
+        kd = stack_lanes(lambda i: setup.make_kernel_data(
+            prepared[i][0], intensity=max(1, len(prepared[i][1][:cap]))),
+            n_lanes)
+    else:
+        data, c0 = prepared[0][0], prepared[0][1]
+        maps = expand_lanes(setup.make_maps(data), n_lanes)
+        kd = expand_lanes(setup.make_kernel_data(
+            data, intensity=max(1, len(c0[:cap]))), n_lanes)
+    fingerprint = np.array(
+        [CHECKPOINT_FORMAT, budget.total_super, budget.seg_super,
+         budget.alpha_super, budget.t_target, cap, h, w, n_lanes]
+        + [int(s) for s in seeds], np.float64)
+    done, t0 = 0, float(params.t0)
+    state = None
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        ck = np.load(checkpoint_path)
+        if (CHECKPOINT_KEYS <= set(ck.files)
+                and ck["fingerprint"].shape == fingerprint.shape
+                and bool(np.allclose(ck["fingerprint"], fingerprint))):
+            state = PointsState(
+                xy=torch.as_tensor(ck["xy"], device=device),
+                marks=torch.as_tensor(ck["marks"], device=device),
+                alive=torch.as_tensor(ck["alive"], device=device))
+            done, t0 = int(ck["done"]), float(ck["t0"])
+            logging.info(f"{name}: resuming at superstep {done}")
+        else:
+            logging.warning(f"{name}: checkpoint mismatch - restart")
+    if state is None:
+        state = stack_lanes(lambda i: state_from_arrays(
+            lane_data(i)[1][:cap], lane_data(i)[2][:cap], capacity=cap,
+            device=device), n_lanes)
+
+    def checkpoint(st: PointsState, done_v: int, t0_v: float) -> None:
+        np.savez(checkpoint_path, xy=st.xy.cpu().numpy(),
+                 marks=st.marks.cpu().numpy(),
+                 alive=st.alive.cpu().numpy(), done=done_v, t0=t0_v,
+                 fingerprint=fingerprint)
+
+    _sync(device)
+    t_prep = time.perf_counter() - t_start
+    t_chain = time.perf_counter()
+    run = _anneal(state, maps, kd, setup, comb, budget, lane_seeds, done, t0,
+                  data_moves, device, stopping, max_segments,
+                  checkpoint if checkpoint_path else None, name)
     _sync(device)
     t_chain = time.perf_counter() - t_chain
-
-    t_score = time.perf_counter()
+    ended = run.stopped or run.done >= budget.total_super
+    if checkpoint_path and ended and os.path.exists(checkpoint_path):
+        os.remove(checkpoint_path)
+    cache, energy = run.cache, run.energy
     if cache is None:  # no segment ran here (resumed at its end)
-        cache = build_cache(state, maps, setup.spec)
-        energy = energy_from_cache(state, maps, setup.spec, comb, cache)
-    else:
-        energy = stats.final_energy
-    scores_k = papangelou(state, maps, setup.spec, comb).cpu().numpy()
-    xy, marks = state_to_arrays(state)
-    alive = state.alive.cpu().numpy()
-    t_score = time.perf_counter() - t_score
-    centers_np = np.asarray(xy).reshape(-1, 2)
-    marks_np = np.asarray(marks).reshape(-1, 3)
-    scores_np = scores_k[alive].reshape(-1)
-    # keep detections whose center lies in the original scene extent
-    h0, w0 = orig_hw
-    keep = ((centers_np[:, 0] < h0) & (centers_np[:, 1] < w0)
-            & (centers_np >= 0).all(axis=1))
-    return SceneResult(
-        centers=centers_np[keep], marks=marks_np[keep],
-        scores=scores_np[keep], total_moves=done * budget.mps,
-        supersteps=done, planned_supersteps=budget.total_super, capacity=cap,
-        seconds={"prep": t_prep, "chain": t_chain, "score": t_score},
-        chain=ChainOutcome(state=state, cache=cache, energy=energy,
-                           maps=maps),
-        stopped=stopped,
-    )
+        cache = build_cache(run.state, maps, setup.spec)
+        energy = energy_from_cache(run.state, maps, setup.spec, comb, cache)
+
+    results = []
+    u_lanes = energy.cpu().numpy().reshape(n_scenes, restarts)
+    for i, (data, _, _, orig_hw, prep_s) in enumerate(prepared):
+        t_score = time.perf_counter()
+        best = int(np.argmin(u_lanes[i]))
+        b = i * restarts + best
+        if restarts > 1:
+            logging.info(f"scene {data.name}: best-of-{restarts} restarts - "
+                         f"energies {np.round(u_lanes[i], 2).tolist()} -> "
+                         f"lane {best}")
+        outcome = ChainOutcome(state=lane(run.state, b), cache=lane(cache, b),
+                               energy=energy[b], maps=lane(maps, b))
+        st, polished, t_polish = outcome.state, None, 0.0
+        if polish_steps > 0:
+            st, (u_pre, u_post) = polish_state(st, outcome.maps, setup.spec,
+                                               comb, n_steps=polish_steps)
+            polished = (float(u_pre), float(u_post))
+            t_polish = time.perf_counter() - t_score
+            logging.info(f"scene {data.name}: polish {polish_steps} steps "
+                         f"U {polished[0]:.2f} -> {polished[1]:.2f}")
+        scores_k = papangelou(st, outcome.maps, setup.spec,
+                              comb).cpu().numpy()
+        xy, marks = state_to_arrays(st)
+        alive = st.alive.cpu().numpy()
+        centers_np = np.asarray(xy).reshape(-1, 2)
+        marks_np = np.asarray(marks).reshape(-1, 3)
+        scores_np = scores_k[alive].reshape(-1)
+        # keep detections whose center lies in the original scene extent
+        h0, w0 = orig_hw
+        keep = ((centers_np[:, 0] < h0) & (centers_np[:, 1] < w0)
+                & (centers_np >= 0).all(axis=1))
+        results.append(SceneResult(
+            centers=centers_np[keep], marks=marks_np[keep],
+            scores=scores_np[keep], total_moves=run.done * budget.mps,
+            supersteps=run.done, planned_supersteps=budget.total_super,
+            capacity=cap,
+            seconds={"prep": prep_s + t_prep, "chain": t_chain,
+                     "polish": t_polish,
+                     "score": time.perf_counter() - t_score - t_polish},
+            chain=outcome, stopped=run.stopped,
+            lane_energies=[float(u) for u in u_lanes[i]], best_lane=best,
+            polish_energies=polished))
+    logging.info(f"{name}: {run.done} supersteps x ~{budget.mps} cells in "
+                 f"{n_lanes} lane(s) (K={cap}) [prep={t_prep:.1f}s "
+                 f"chain={t_chain:.1f}s]")
+    return results
 
 
 def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
@@ -340,20 +436,30 @@ def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
                     seed: int = 0, capacity: int = 256, init: str = "naive",
                     segment_size: int = 4096,
                     max_segments: Optional[int] = None,
-                    data_moves: bool = True, device=None) -> SceneResult:
+                    data_moves: bool = True, device=None,
+                    checkpoint_path: Optional[str] = None,
+                    stopping: Optional[StoppingCondition] = None,
+                    restarts: int = 1, polish_steps: int = 0) -> SceneResult:
     """EXACT whole-scene MPP: one global cell-parallel chain over the full
     (bucket-padded) maps, then papangelou scores.
 
-    ``max_segments`` stops the anneal after that many segments and scores
-    the state reached (a bounded run; ``supersteps`` says how far it got)."""
+    ``restarts``: N independent anneals of the scene as N lanes of one
+    launch sequence (lane 0 is the one-lane chain), keeping the lane of
+    lowest final energy; ``polish_steps``: gradient polish of the kept
+    configuration (``mpp/polish.py``). ``checkpoint_path`` and ``stopping``
+    as in ``run_exact_scenes_batched``; ``max_segments`` stops the anneal
+    after that many segments and scores the state reached (a bounded run;
+    ``supersteps`` says how far it got)."""
     device = resolve_device(device)
     t_start = time.perf_counter()
     target = scene_shape_bucket(*data.shape, 1)
     data, c0, m0, orig = _prepare(data, setup, target, init, device)
     cap = _capacity(*data.shape, capacity, len(c0))
-    return _run_prepared(data, c0, m0, orig, setup, comb, params, seed, cap,
-                         segment_size, max_segments,
-                         data_moves, device, time.perf_counter() - t_start)
+    prepared = [(data, c0, m0, orig, time.perf_counter() - t_start)]
+    return _run_lanes(prepared, setup, comb, params, [seed],
+                      max(1, int(restarts)), cap, segment_size, max_segments,
+                      data_moves, device, checkpoint_path, stopping,
+                      int(polish_steps), f"scene {data.name}")[0]
 
 
 def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
@@ -366,86 +472,36 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
                              device=None,
                              checkpoint_path: Optional[str] = None,
                              stopping: Optional[StoppingCondition] = None,
+                             polish_steps: int = 0,
                              ) -> List[SceneResult]:
-    """Exact scenes over a batch sharing ONE bucket and ONE capacity (the
-    JAX batched run's signature), run scene by scene: scene i equals
-    ``run_exact_scene`` at that bucket and capacity with ``seeds[i]``.
+    """Exact scenes over a batch sharing ONE bucket and ONE capacity, as
+    one program: the B scenes are the lanes of one launch sequence per
+    superstep, and scene i equals ``run_exact_scene`` at that bucket and
+    capacity with ``seeds[i]``, draw for draw (the JAX batched run's
+    contract).
 
-    ``stopping`` is evaluated per scene, on that scene's segment summaries;
-    the JAX batched run evaluates it jointly (mean energy, summed accepts
-    over the batch). With ``max_iter`` the two stop at the same superstep.
+    ``stopping`` is evaluated once per segment over the batch, on JAX's
+    summary (mean final energy, largest point count, summed accepts over
+    summed proposals), so every scene stops at the same superstep.
 
-    ``checkpoint_path``: after every segment, the batch's states and
-    progress go to this ``.npz`` with a fingerprint of the budget (its
-    supersteps, segment, annealing, capacity, bucket, batch size and
-    seeds); a run that finds a matching file resumes each scene where it
-    stood, and the file is removed once every scene is done. The layout
-    differs from the JAX package's batched checkpoint (per-scene progress),
-    and the fingerprint's leading ``CHECKPOINT_FORMAT`` makes it one entry
-    longer, so each package restarts on the other's file."""
+    ``checkpoint_path``: the batch's states and its single progress after
+    every segment, with a fingerprint led by ``CHECKPOINT_FORMAT``; the
+    JAX package's file of the same name has no format tag and another
+    length, so each package restarts on the other's file. ``polish_steps``
+    polishes each scene's final configuration before scoring."""
     assert len(datas) > 0
     device = resolve_device(device)
     target_h = max(scene_shape_bucket(*d.shape, 1)[0] for d in datas)
     target_w = max(scene_shape_bucket(*d.shape, 1)[1] for d in datas)
-    prepared, prep_s = [], []
+    prepared = []
     for d in datas:
         t_start = time.perf_counter()
-        prepared.append(_prepare(d, setup, (target_h, target_w), init,
-                                 device))
-        prep_s.append(time.perf_counter() - t_start)
+        d, c0, m0, orig = _prepare(d, setup, (target_h, target_w), init,
+                                   device)
+        prepared.append((d, c0, m0, orig, time.perf_counter() - t_start))
     cap = max(_capacity(target_h, target_w, capacity, len(p[1]))
               for p in prepared)
-    budget = superstep_budget(target_h, target_w, params, segment_size)
-    fingerprint = np.array(
-        [CHECKPOINT_FORMAT, budget.total_super, budget.seg_super,
-         budget.alpha_super, budget.t_target, cap, target_h, target_w,
-         len(datas)] + [int(s) for s in seeds], np.float64)
-
-    progress: List[Optional[ChainProgress]] = [None] * len(datas)
-    if checkpoint_path and os.path.exists(checkpoint_path):
-        ck = np.load(checkpoint_path)
-        if (CHECKPOINT_KEYS <= set(ck.files)
-                and ck["fingerprint"].shape == fingerprint.shape
-                and bool(np.allclose(ck["fingerprint"], fingerprint))
-                and ck["done"].shape == (len(datas),)):
-            progress = [ChainProgress(
-                xy=ck["xy"][i], marks=ck["marks"][i], alive=ck["alive"][i],
-                done=int(ck["done"][i]), t0=float(ck["t0"][i]),
-                stopped=bool(ck["stopped"][i])) for i in range(len(datas))]
-            logging.info(f"batched scenes: resuming at supersteps "
-                         f"{[p.done for p in progress]}")
-        else:
-            logging.warning("batched scenes: checkpoint mismatch - restart")
-    # what the checkpoint holds per scene: its progress, or its initial
-    # configuration until its first segment has run
-    record = [p if p is not None else ChainProgress.of(
-        state_from_arrays(c0[:cap], m0[:cap], capacity=cap), 0,
-        float(params.t0)) for p, (_, c0, m0, _) in zip(progress, prepared)]
-
-    def checkpoint(i: int, prog: ChainProgress) -> None:
-        record[i] = prog
-        if all(r.finished(budget.total_super) for r in record):
-            return
-        np.savez(checkpoint_path,
-                 xy=np.stack([r.xy for r in record]),
-                 marks=np.stack([r.marks for r in record]),
-                 alive=np.stack([r.alive for r in record]),
-                 done=np.array([r.done for r in record]),
-                 t0=np.array([r.t0 for r in record]),
-                 stopped=np.array([r.stopped for r in record]),
-                 fingerprint=fingerprint)
-
-    results = []
-    for i, ((d, c0, m0, orig), seed, t_prep) in enumerate(
-            zip(prepared, seeds, prep_s)):
-        on_segment = None
-        if checkpoint_path:
-            on_segment = lambda prog, i=i: checkpoint(i, prog)  # noqa: E731
-        results.append(_run_prepared(
-            d, c0, m0, orig, setup, comb, params, seed, cap, segment_size,
-            max_segments, data_moves, device, t_prep, stopping=stopping,
-            resume=progress[i], on_segment=on_segment))
-    if checkpoint_path and os.path.exists(checkpoint_path) and all(
-            r.finished(budget.total_super) for r in record):
-        os.remove(checkpoint_path)
-    return results
+    return _run_lanes(prepared, setup, comb, params, seeds, 1, cap,
+                      segment_size, max_segments, data_moves, device,
+                      checkpoint_path, stopping, int(polish_steps),
+                      f"batched scenes x{len(datas)}")

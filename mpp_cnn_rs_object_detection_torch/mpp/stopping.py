@@ -4,13 +4,16 @@ Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/stopping.py``
 (``SegmentSummary``, the ``StopOn*`` conditions, ``CompositeStopping`` and
 ``stopping_from_config``; the sequential sampler's segmented runner is not
 ported). The chain runs in fixed-size segments and the host checks the
-condition on the per-segment summaries between them.
+condition between them on one summary per segment, taken jointly over the
+lanes of a batch (``batch_summary``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import List, Optional
+
+import numpy as np
 
 
 @dataclass
@@ -23,6 +26,22 @@ class SegmentSummary:
     temperature: float
     accept_rate: float
     seconds: float
+
+
+def batch_summary(final_energy, final_n_points, accepted, proposed,
+                  iter: int, temperature: float, seconds: float
+                  ) -> SegmentSummary:
+    """One segment's summary over the lanes of a batch, as the JAX batched
+    run forms it: the mean of the lanes' final energies, their largest
+    point count, and the summed accepts over the summed proposals (host
+    arrays: (B,), (B,), (B, n_kernels), (B, n_kernels))."""
+    acc = float(np.sum(np.asarray(accepted)))
+    nprop = float(np.sum(np.asarray(proposed)))
+    return SegmentSummary(
+        iter=iter, energy=float(np.mean(np.asarray(final_energy))),
+        n_points=int(np.max(np.asarray(final_n_points))),
+        temperature=temperature, accept_rate=acc / max(nprop, 1.0),
+        seconds=seconds)
 
 
 class StoppingCondition:

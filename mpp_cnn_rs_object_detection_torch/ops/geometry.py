@@ -19,8 +19,10 @@ import numpy as np
 import torch
 
 _EPS = 1e-9
-# all-pairs rows per chunk: bounds the (24, rows, Kb) transients
-_ROW_CHUNK = 1024
+# all-pairs pairs per chunk (over every lane): bounds the (24, pairs)
+# transients; one superstep of 3 lanes of 289 cells against K = 1024 slots
+# (888k pairs) is one chunk
+_PAIR_CHUNK = 1 << 22
 
 
 def rect_to_poly(center, short, long, angle, dilation: float = 0.0
@@ -190,13 +192,20 @@ def quad_overlap_ratio(quad_a, quad_b) -> torch.Tensor:
 
 
 def quad_intersection_area_matrix(polys_a, polys_b) -> torch.Tensor:
-    """All-pairs intersection areas (Ka, Kb), candidates on the major axis;
-    rows go in chunks of 1024 to bound the (24, rows, Kb) transients."""
-    bx = polys_b[:, :, 0].T[:, None, :]
-    by = polys_b[:, :, 1].T[:, None, :]
+    """All-pairs intersection areas: ``(..., Ka, 4, 2)`` against
+    ``(..., Kb, 4, 2)`` gives ``(..., Ka, Kb)``, leading (lane) axes
+    broadcast, candidates on the major axis. Rows go in chunks of every
+    lane's rows together, within ``_PAIR_CHUNK`` pairs per chunk."""
+    bx = torch.movedim(polys_b[..., 0], -1, 0)[..., None, :]
+    by = torch.movedim(polys_b[..., 1], -1, 0)[..., None, :]
+    ka, kb = polys_a.shape[-3], polys_b.shape[-3]
+    n_lanes = math.prod(torch.broadcast_shapes(polys_a.shape[:-3],
+                                               polys_b.shape[:-3]))
+    rows = max(1, _PAIR_CHUNK // max(1, n_lanes * kb))
     out = []
-    for r in range(0, polys_a.shape[0], _ROW_CHUNK):
-        pa = polys_a[r:r + _ROW_CHUNK]
-        out.append(_intersection_area(pa[:, :, 0].T[:, :, None],
-                                      pa[:, :, 1].T[:, :, None], bx, by))
-    return out[0] if len(out) == 1 else torch.cat(out)
+    for r in range(0, ka, rows):
+        pa = polys_a[..., r:r + rows, :, :]
+        out.append(_intersection_area(
+            torch.movedim(pa[..., 0], -1, 0)[..., None],
+            torch.movedim(pa[..., 1], -1, 0)[..., None], bx, by))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-2)

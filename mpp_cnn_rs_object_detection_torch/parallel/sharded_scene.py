@@ -3,14 +3,17 @@
 Counterpart of ``run_exact_scene_chain`` in
 ``mpp_cnn_rs_object_detection_tpu/parallel/sharded_scene.py`` for
 ``mesh=None``: run ``n_supersteps`` cell-parallel supersteps on the whole
-maps and return the state, the carried cache (pass it back to continue
-without an O(K^2) rebuild) and the segment's stats. The row-sharded mesh
-variant is not ported.
+maps of every lane (the state, maps and kernel data carry a leading lane
+axis B; ``gens`` holds one generator per lane) and return the states, the
+carried cache (pass it back to continue without an O(K^2) rebuild) and the
+segment's per-lane stats. One launch sequence per superstep serves all B
+lanes, where the JAX package vmaps the one-lane chain. The row-sharded
+mesh variant is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -35,7 +38,8 @@ from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
 from mpp_cnn_rs_object_detection_torch.mpp.state import PointsState
 
 
-def run_exact_scene_chain(gen: torch.Generator, init_state: PointsState,
+def run_exact_scene_chain(gens: Sequence[torch.Generator],
+                          init_state: PointsState,
                           maps: EnergyMaps, spec: EnergySpec,
                           comb: EnergyCombiner, kd: KernelData,
                           n_supersteps: int, t0: float = 1.0,
@@ -43,7 +47,7 @@ def run_exact_scene_chain(gen: torch.Generator, init_state: PointsState,
                           cache: Optional[EnergyCache] = None,
                           data_moves: bool = True,
                           ) -> Tuple[PointsState, EnergyCache, ChainStats]:
-    h, w = maps.position.shape
+    h, w = maps.position.shape[-2:]
     if cache is None:
         cache = build_cache(init_state, maps, spec)
     u0 = energy_from_cache(init_state, maps, spec, comb, cache)
@@ -51,5 +55,5 @@ def run_exact_scene_chain(gen: torch.Generator, init_state: PointsState,
     step = make_parallel_step(maps, spec, comb, kd, alpha_t, t_target,
                               n_cells, data_moves=data_moves)
     (state, cache, energy, temp), acc, prop = run_steps(
-        step, init_state, cache, u0, t0, n_supersteps, gen)
+        step, init_state, cache, u0, t0, n_supersteps, gens)
     return state, cache, chain_stats(kd, acc, prop, energy, state, temp)

@@ -11,7 +11,11 @@ time and kernel launches per superstep, the device's idle share (device
 kernel time against the unprofiled wall time), and the kernels that take
 the most device time.
 
-    python3 scripts/torch_profile_chain.py [--seed 0]
+    python3 scripts/torch_profile_chain.py [--seed 0] [--lanes 1]
+
+``--lanes B`` runs the scene as B lanes of one program (the restarts'
+layout: the maps shared as views, one generator per lane), so launches and
+device time per superstep can be read against B.
 
 Prints one JSON summary line last. Needs a CUDA device and the trained
 checkpoints under ``artifacts/models_storage/``.
@@ -45,9 +49,9 @@ def device_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lanes", type=int, default=1)
     args = ap.parse_args()
 
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -65,6 +69,8 @@ def main() -> int:
         energy_from_cache,
     )
     from mpp_cnn_rs_object_detection_torch.mpp.state import (
+        expand_lanes,
+        stack_lanes,
         state_from_arrays,
     )
     from mpp_cnn_rs_object_detection_torch.ops import detection_kernel as dk
@@ -95,9 +101,12 @@ def main() -> int:
     target = scene.scene_shape_bucket(*data.shape)
     data, c0, m0, _ = scene._prepare(data, setup, target, "naive", dev)
     cap = scene._capacity(*data.shape, config.get("capacity", 256), len(c0))
-    maps = setup.make_maps(data)
-    kd = setup.make_kernel_data(data, intensity=max(1, len(c0)))
-    state = state_from_arrays(c0[:cap], m0[:cap], capacity=cap, device=dev)
+    lanes = args.lanes
+    maps = expand_lanes(setup.make_maps(data), lanes)
+    kd = expand_lanes(setup.make_kernel_data(data, intensity=max(1, len(c0))),
+                      lanes)
+    state = stack_lanes(lambda _: state_from_arrays(
+        c0[:cap], m0[:cap], capacity=cap, device=dev), lanes)
     budget = scene.superstep_budget(*data.shape, inf.params)
     h, w = data.shape
     step = make_parallel_step(maps, setup.spec, comb, kd, budget.alpha_super,
@@ -105,7 +114,8 @@ def main() -> int:
     cache = build_cache(state, maps, setup.spec)
     carry = (state, cache, energy_from_cache(state, maps, setup.spec, comb,
                                              cache), 1.0)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    gen = [torch.Generator(device=dev).manual_seed(args.seed + i)
+           for i in range(lanes)]
     for _ in range(WARMUP):
         carry, _ = step(carry, gen)
     sync()
@@ -133,7 +143,7 @@ def main() -> int:
     summary = {
         "device": torch.cuda.get_device_name(dev),
         "nvidia_smi": nvidia_smi_line(),
-        "bucket": list(target), "capacity": cap,
+        "bucket": list(target), "capacity": cap, "lanes": lanes,
         "cells_per_superstep": (max(h, w) // (2 * CELL) + 1) ** 2,
         "cnn_maps_s": cnn_s,
         "detection_map_launches_per_scene": cnn_launches,
@@ -149,7 +159,7 @@ def main() -> int:
                          "calls_per_superstep": e.count / n} for e in top],
     }
     print(json.dumps(summary))
-    return 0 if np.isfinite(float(carry[2])) else 1
+    return 0 if bool(torch.isfinite(carry[2]).all()) else 1
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
-"""The PyTorch port and chip_smoke.py must run where the JAX stack is
-absent: with jax, flax, optax, msgpack, PIL, ninja and the JAX package
-blocked, every module of the port and chip_smoke.py import, the checkpoint
-reader decodes a checked-in flax checkpoint, and the synthetic dataset
-writer and the PNG codec run."""
+"""The PyTorch port, chip_smoke.py and bench_torch.py must run where the JAX
+stack is absent: with jax, flax, optax, msgpack, PIL, ninja and the JAX
+package blocked, every module of the port and both scripts import, the
+checkpoint reader decodes a checked-in flax checkpoint, and the synthetic
+dataset writer and the PNG codec run."""
 
 import ast
 import os
@@ -26,6 +26,7 @@ mods = [m.name for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}.")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import bench_torch
 from {PORT}.models.checkpoint import read_checkpoint
 ck = read_checkpoint({CKPT!r})
 assert ck["params"]["net"]["Conv_0"]["kernel"].shape == (1, 1, 32, 3)
@@ -59,6 +60,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "bench_torch.py")
 
 
 def test_no_blocked_import_anywhere_in_the_source():

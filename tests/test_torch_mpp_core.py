@@ -23,6 +23,8 @@ from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
     ImageWMaps as TImageWMaps,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
+    expand_lanes,
+    lane,
     state_from_arrays as t_state,
 )
 from mpp_cnn_rs_object_detection_torch.ops import dihedral as tdi
@@ -213,13 +215,19 @@ def test_cache_build_update_energy(name):
     jc, tc = _combiners(name)
     xy, marks, cap = _config()
     js, ts = j_state(xy, marks, cap), t_state(xy, marks, cap)
-    jca, tca = jrj.build_cache(js, jmaps, jspec), trj.build_cache(ts, tmaps,
-                                                                  tspec)
+    # the port's cache functions take lanes: this configuration is one
+    def t_energy(cache):
+        return trj.energy_from_cache(expand_lanes(ts, 1),
+                                     expand_lanes(tmaps, 1), tspec, tc,
+                                     expand_lanes(cache, 1))[0]
+
+    jca = jrj.build_cache(js, jmaps, jspec)
+    tca = lane(trj.build_cache(expand_lanes(ts, 1), expand_lanes(tmaps, 1),
+                               tspec), 0)
     for f in ("dist", "overlap", "align", "pos_e", "mark_e", "polys",
               "areas"):
         close(getattr(tca, f), getattr(jca, f), err_msg=f)
-    close(trj.energy_from_cache(ts, tmaps, tspec, tc, tca),
-          jrj.energy_from_cache(js, jmaps, jspec, jc, jca))
+    close(t_energy(tca), jrj.energy_from_cache(js, jmaps, jspec, jc, jca))
     # move slot 4 next to slot 0, birth into dead slot 20
     for slot, new_xy, new_m in [(4, xy[0] + 1.5, [6.0, 0.5, 1.0]),
                                 (20, xy[1] - 2.0, [4.0, 0.8, 0.2])]:
@@ -233,10 +241,8 @@ def test_cache_build_update_energy(name):
         tca = trj.update_cache(ts, tmaps, tspec, tca, slot)
         for f in ("dist", "overlap", "align", "pos_e", "mark_e", "polys"):
             close(getattr(tca, f), getattr(jca, f), err_msg=f)
-        close(trj.energy_from_cache(ts, tmaps, tspec, tc, tca),
-              jrj.energy_from_cache(js, jmaps, jspec, jc, jca))
-        close(trj.energy_from_cache(ts, tmaps, tspec, tc, tca),
-              ten.total_energy(ts, tmaps, tspec, tc))
+        close(t_energy(tca), jrj.energy_from_cache(js, jmaps, jspec, jc, jca))
+        close(t_energy(tca), ten.total_energy(ts, tmaps, tspec, tc))
 
 
 @pytest.mark.parametrize("name", ["legacy", "no_calib"])

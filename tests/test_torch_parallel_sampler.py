@@ -1,7 +1,10 @@
 """Cell-parallel superstep of the PyTorch port against the JAX package,
 fed the SAME proposals (the two packages draw different random numbers):
 exact per-proposal dU, the batched apply with its scratch-row scatter, and
-the port's own chain keeping its carried cache and energy exact."""
+the port's own chain keeping its carried cache and energy exact. The port's
+superstep runs lanes (scenes or restarts) on a leading axis: one lane, and
+two lanes with their own states, maps and proposals, each against the JAX
+functions on that lane's inputs."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,9 @@ from mpp_cnn_rs_object_detection_torch.mpp import parallel_sampler as tps
 from mpp_cnn_rs_object_detection_torch.mpp import rjmcmc as trj
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     empty_state,
+    expand_lanes,
+    lane,
+    stack_lanes,
     state_from_arrays as t_state,
     state_to_arrays,
 )
@@ -48,11 +54,31 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _setup():
+def _one_lane(*items):
+    return [expand_lanes(x, 1) for x in items]
+
+
+def _lanes(*tensors):
+    """Proposal arrays of one lane with the lane axis added."""
+    return [_t(a)[None] for a in tensors]
+
+
+def _cache(state, maps, spec):
+    """The cache of one configuration (the port builds lanes)."""
+    return lane(trj.build_cache(*_one_lane(state, maps), spec), 0)
+
+
+def _energy(state, maps, spec, comb, cache):
+    """U of one configuration from its cache."""
+    return trj.energy_from_cache(*_one_lane(state, maps), spec, comb,
+                                 *_one_lane(cache))[0]
+
+
+def _setup(centers=CENTERS):
     """The blob scene of tests/test_parallel_sampler.py, in both packages."""
     gy, gx = np.mgrid[:H, :W]
     det = np.zeros((H, W))
-    for c in CENTERS:
+    for c in centers:
         det += np.exp(-((gy - c[0]) ** 2 + (gx - c[1]) ** 2) / (2 * 2.0 ** 2))
     det = np.clip(det, 0, 1).astype(np.float32)
     dist = np.full((H, W, C), 1.0 / C, np.float32)
@@ -81,8 +107,7 @@ def test_superstep_deltas_match_jax_and_bruteforce():
     xy, marks = _crowded_state()
     js, ts = j_state(xy, marks, 12), t_state(xy, marks, 12)
     spec_j, spec_t = jen.LEGACY_SPEC, ten.LEGACY_SPEC
-    jca, tca = jrj.build_cache(js, jmaps, spec_j), trj.build_cache(
-        ts, tmaps, spec_t)
+    jca, tca = jrj.build_cache(js, jmaps, spec_j), _cache(ts, tmaps, spec_t)
     # birth into a free slot, death, move (translate), transform, no-op
     kinds = np.array([1, 2, 3, 3, 0], np.int32)
     slots = np.array([9, 1, 4, 6, 2], np.int32)
@@ -93,16 +118,18 @@ def test_superstep_deltas_match_jax_and_bruteforce():
     want = np.asarray(jps.superstep_deltas(
         js, jca, jmaps, spec_j, jc, jnp.asarray(kinds), jnp.asarray(slots),
         jnp.asarray(xys), jnp.asarray(ms)))
-    got = tps.superstep_deltas(ts, tca, tmaps, spec_t, tc, _t(kinds).long(),
-                               _t(slots).long(), _t(xys), _t(ms)).numpy()
+    got, _ = tps.superstep_deltas(
+        *_one_lane(ts, tca, tmaps), spec_t, tc,
+        *_lanes(kinds.astype(np.int64), slots.astype(np.int64), xys, ms))
+    got = got[0].numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     assert got[4] == 0.0
-    u0 = trj.energy_from_cache(ts, tmaps, spec_t, tc, tca)
+    u0 = _energy(ts, tmaps, spec_t, tc, tca)
     for i in range(4):
         st_i = tps._apply_one(ts, int(kinds[i]), int(slots[i]), _t(xys[i]),
                               _t(ms[i]))
         ca_i = trj.update_cache(st_i, tmaps, spec_t, tca, int(slots[i]))
-        u_i = trj.energy_from_cache(st_i, tmaps, spec_t, tc, ca_i)
+        u_i = _energy(st_i, tmaps, spec_t, tc, ca_i)
         np.testing.assert_allclose(got[i], float(u_i - u0), rtol=RTOL,
                                    atol=ATOL, err_msg=f"proposal {i}")
 
@@ -125,12 +152,12 @@ def test_apply_batch_matches_jax_and_sequential():
     xy, marks = _crowded_state()
     js, ts = j_state(xy, marks, 12), t_state(xy, marks, 12)
     spec_j, spec_t = jen.LEGACY_SPEC, ten.LEGACY_SPEC
-    jca, tca = jrj.build_cache(js, jmaps, spec_j), trj.build_cache(
-        ts, tmaps, spec_t)
+    jca, tca = jrj.build_cache(js, jmaps, spec_j), _cache(ts, tmaps, spec_t)
     kinds, slots, xys, ms, accept = _batch()
     jpos, jmark = jax.vmap(lambda a, b: jps._unary_at(jmaps, spec_j, a, b))(
         jnp.asarray(xys), jnp.asarray(ms))
-    tpos, tmark = tps._unary_at(tmaps, spec_t, _t(xys), _t(ms))
+    tpos, tmark = (x[0] for x in tps._unary_at(
+        *_one_lane(tmaps), spec_t, *_lanes(xys, ms)))
     np.testing.assert_allclose(tpos.numpy(), np.asarray(jpos), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_allclose(tmark.numpy(), np.asarray(jmark), rtol=RTOL,
@@ -138,9 +165,10 @@ def test_apply_batch_matches_jax_and_sequential():
     js2, jca2 = jps._apply_batch(
         js, jca, spec_j, jnp.asarray(kinds), jnp.asarray(slots),
         jnp.asarray(xys), jnp.asarray(ms), jpos, jmark, jnp.asarray(accept))
-    ts2, tca2 = tps._apply_batch(
-        ts, tca, spec_t, _t(kinds).long(), _t(slots).long(), _t(xys),
-        _t(ms), tpos, tmark, _t(accept))
+    ts2, tca2 = (lane(x, 0) for x in tps._apply_batch(
+        *_one_lane(ts, tca), spec_t,
+        *_lanes(kinds.astype(np.int64), slots.astype(np.int64), xys, ms),
+        tpos[None], tmark[None], _t(accept)[None]))
     for f in ("xy", "marks", "alive"):
         np.testing.assert_allclose(getattr(ts2, f).numpy(),
                                    np.asarray(getattr(js2, f)), err_msg=f)
@@ -163,32 +191,145 @@ def test_apply_batch_matches_jax_and_sequential():
                                    atol=ATOL, err_msg=f)
 
 
+OTHER_CENTERS = [(40, 40), (60, 130), (120, 30), (140, 100)]
+
+
+def _second_lane():
+    """Another scene, configuration and set of proposals for lane 1."""
+    jmaps, tmaps, _, _, _, _ = _setup(OTHER_CENTERS)
+    xy = np.array([[40, 40], [42, 44], [60, 130], [120, 30], [140, 100],
+                   [139, 96]], np.float32)
+    marks = np.tile(np.array([[5.5, 0.5, 0.9]], np.float32), (6, 1))
+    marks[1, 2] = 0.2
+    marks[5, 0] = 7.0
+    kinds = np.array([3, 1, 2, 0, 3, 1], np.int32)
+    slots = np.array([0, 7, 5, 1, 3, 9], np.int32)
+    xys = np.array([[41.0, 41.5], [100, 100], [139, 96], [2, 2],
+                    [121, 31], [60, 133]], np.float32)
+    ms = np.array([[5.5, 0.6, 0.9], [6, 0.5, 1.0], [7, 0.5, 0.9],
+                   [1, 1, 1], [5.5, 0.5, 2.5], [6.5, 0.4, 0.1]], np.float32)
+    accept = np.array([True, True, True, True, True, False])
+    return jmaps, tmaps, xy, marks, kinds, slots, xys, ms, accept
+
+
+def _two_lanes():
+    """Both packages' inputs for two lanes: the crowded state with the
+    proposals of ``_batch`` on the blob scene, and ``_second_lane``."""
+    jmaps0, tmaps0, _, _, _, _ = _setup()
+    xy0, marks0 = _crowded_state()
+    lane0 = (jmaps0, tmaps0, xy0, marks0) + _batch()
+    lanes = [lane0, _second_lane()]
+    js = [j_state(x[2], x[3], 12) for x in lanes]
+    ts = [t_state(x[2], x[3], 12) for x in lanes]
+    return lanes, js, ts
+
+
+def _stack(arrays, dtype=None):
+    return torch.stack([_t(np.asarray(a, dtype)) for a in arrays])
+
+
+def test_superstep_deltas_two_lanes_match_jax():
+    """One call over two lanes (states, maps and proposals of their own)
+    gives each lane the JAX dU of its proposals on its inputs."""
+    lanes, js, ts = _two_lanes()
+    spec_j, spec_t = jen.LEGACY_SPEC, ten.LEGACY_SPEC
+    jc, tc = _setup()[3:5]
+    tmaps = stack_lanes(lambda b: lanes[b][1], 2)
+    tstate = stack_lanes(lambda b: ts[b], 2)
+    tcache = trj.build_cache(tstate, tmaps, spec_t)
+    got, _ = tps.superstep_deltas(
+        tstate, tcache, tmaps, spec_t, tc,
+        _stack([x[4] for x in lanes], np.int64),
+        _stack([x[5] for x in lanes], np.int64),
+        _stack([x[6] for x in lanes]), _stack([x[7] for x in lanes]))
+    got = got.numpy()
+    for b, x in enumerate(lanes):
+        jca = jrj.build_cache(js[b], x[0], spec_j)
+        want = np.asarray(jps.superstep_deltas(
+            js[b], jca, x[0], spec_j, jc, jnp.asarray(x[4]),
+            jnp.asarray(x[5]), jnp.asarray(x[6]), jnp.asarray(x[7])))
+        np.testing.assert_allclose(got[b], want, rtol=RTOL, atol=ATOL,
+                                   err_msg=f"lane {b}")
+    # each lane equals its own one-lane call
+    for b, x in enumerate(lanes):
+        one, _ = tps.superstep_deltas(
+            *_one_lane(ts[b], _cache(ts[b], x[1], spec_t), x[1]),
+            spec_t, tc, *_lanes(x[4].astype(np.int64),
+                                x[5].astype(np.int64), x[6], x[7]))
+        np.testing.assert_array_equal(got[b], one[0].numpy())
+
+
+def test_apply_batch_two_lanes_match_jax():
+    """One batched apply over two lanes scatters each lane's accepted
+    proposals into its own rows (and its own scratch row) exactly as the
+    JAX apply does on that lane."""
+    lanes, js, ts = _two_lanes()
+    spec_j, spec_t = jen.LEGACY_SPEC, ten.LEGACY_SPEC
+    tmaps = stack_lanes(lambda b: lanes[b][1], 2)
+    tstate = stack_lanes(lambda b: ts[b], 2)
+    tcache = trj.build_cache(tstate, tmaps, spec_t)
+    xys = _stack([x[6] for x in lanes])
+    ms = _stack([x[7] for x in lanes])
+    tpos, tmark = tps._unary_at(tmaps, spec_t, xys, ms)
+    ts2, tca2 = tps._apply_batch(
+        tstate, tcache, spec_t, _stack([x[4] for x in lanes], np.int64),
+        _stack([x[5] for x in lanes], np.int64), xys, ms, tpos, tmark,
+        _stack([x[8] for x in lanes]))
+    for b, x in enumerate(lanes):
+        jmaps = x[0]
+        jca = jrj.build_cache(js[b], jmaps, spec_j)
+        jpos, jmark = jax.vmap(
+            lambda a, c: jps._unary_at(jmaps, spec_j, a, c))(
+                jnp.asarray(x[6]), jnp.asarray(x[7]))
+        np.testing.assert_allclose(tpos[b].numpy(), np.asarray(jpos),
+                                   rtol=RTOL, atol=ATOL)
+        js2, jca2 = jps._apply_batch(
+            js[b], jca, spec_j, jnp.asarray(x[4]), jnp.asarray(x[5]),
+            jnp.asarray(x[6]), jnp.asarray(x[7]), jpos, jmark,
+            jnp.asarray(x[8]))
+        for f in ("xy", "marks", "alive"):
+            np.testing.assert_allclose(getattr(ts2, f)[b].numpy(),
+                                       np.asarray(getattr(js2, f)),
+                                       err_msg=f"lane {b} {f}")
+        for f in ("dist", "overlap", "align", "pos_e", "mark_e", "polys",
+                  "areas"):
+            np.testing.assert_allclose(getattr(tca2, f)[b].numpy(),
+                                       np.asarray(getattr(jca2, f)),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"lane {b} {f}")
+
+
 def test_chain_keeps_cache_and_energy_exact():
     """Many multi-accept supersteps: the scattered cache equals a rebuild
     on the final state and the carried energy equals a fresh one."""
     _, tmaps, tkd, _, tc, _ = _setup()
     spec = ten.LEGACY_SPEC
     n_cells = H // (2 * tps.CELL) + 1
-    step = tps.make_parallel_step(tmaps, spec, tc, tkd, 0.994, 0.0, n_cells)
-    state = empty_state(32)
-    cache = trj.build_cache(state, tmaps, spec)
-    gen = torch.Generator().manual_seed(0)
-    (state, cache, energy, _), acc, prop = tps.run_steps(
-        step, state, cache, torch.zeros(()), 1.0, 600, gen)
-    assert int(state.n_points) >= 2 and int(acc) > 0
-    fresh = trj.build_cache(state, tmaps, spec)
-    pair = (state.alive[:, None] & state.alive[None, :]).numpy()
-    for f in ("dist", "overlap", "align"):
-        np.testing.assert_allclose(getattr(cache, f).numpy()[pair],
-                                   getattr(fresh, f).numpy()[pair],
-                                   rtol=RTOL, atol=ATOL, err_msg=f)
-    alive = state.alive.numpy()
-    np.testing.assert_allclose(cache.pos_e.numpy()[alive],
-                               fresh.pos_e.numpy()[alive], rtol=RTOL,
-                               atol=ATOL)
-    np.testing.assert_allclose(float(energy),
-                               float(ten.total_energy(state, tmaps, spec, tc)),
-                               rtol=1e-3, atol=1e-3)
+    # two lanes of the same maps, each with its own generator
+    lmaps, lkd = expand_lanes(tmaps, 2), expand_lanes(tkd, 2)
+    step = tps.make_parallel_step(lmaps, spec, tc, lkd, 0.994, 0.0, n_cells)
+    state = expand_lanes(empty_state(32), 2)
+    cache = trj.build_cache(state, lmaps, spec)
+    gens = [torch.Generator().manual_seed(s) for s in (0, 1)]
+    (states, caches, energy, _), acc, prop = tps.run_steps(
+        step, state, cache, torch.zeros(2), 1.0, 600, gens)
+    assert not torch.equal(states.xy[0], states.xy[1])
+    for b in range(2):
+        state, cache = lane(states, b), lane(caches, b)
+        assert int(state.n_points) >= 2 and int(acc[b]) > 0
+        fresh = _cache(state, tmaps, spec)
+        pair = (state.alive[:, None] & state.alive[None, :]).numpy()
+        for f in ("dist", "overlap", "align"):
+            np.testing.assert_allclose(getattr(cache, f).numpy()[pair],
+                                       getattr(fresh, f).numpy()[pair],
+                                       rtol=RTOL, atol=ATOL, err_msg=f)
+        alive = state.alive.numpy()
+        np.testing.assert_allclose(cache.pos_e.numpy()[alive],
+                                   fresh.pos_e.numpy()[alive], rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(
+            float(energy[b]), float(ten.total_energy(state, tmaps, spec, tc)),
+            rtol=1e-3, atol=1e-3)
 
 
 def test_parallel_chain_finds_objects():

@@ -14,6 +14,7 @@ combiner and calibration in exact scene mode with ``batch_scenes`` and a
 the stated tolerance. The chains differ (threefry against Philox)."""
 
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -264,13 +265,13 @@ def _lines(path):
         return [ln.split(" ") for ln in f.read().splitlines()]
 
 
-def _assert_det_lines_close(path_j, path_t):
+def _assert_det_lines_close(path_j, path_t, atol=MAP_ATOL):
     lj, lt = _lines(path_j), _lines(path_t)
     assert len(lj) == len(lt) > 0, (len(lj), len(lt))
     for a, b in zip(lj, lt):
         assert a[0] == b[0]
         np.testing.assert_allclose(np.array(b[1:], float),
-                                   np.array(a[1:], float), atol=MAP_ATOL)
+                                   np.array(a[1:], float), atol=atol)
 
 
 def test_cnn_detection_maps_agree(cnn_stage):
@@ -420,6 +421,148 @@ def test_export_applies_no_nms(workspaces, monkeypatch):
         for key in ("detection", "detection_center", "detection_score",
                     "detection_params", "detection_marks"):
             np.testing.assert_array_equal(pt[key], pj[key], err_msg=key)
+
+
+EXTENSIONS = {"refine_centers": True, "score_map_blend": 4.0,
+              "backfill_threshold": 0.25}
+# DOTA lines of the extensions: the same float32 and float64 host math in
+# both packages
+EXPORT_ATOL = 1e-5
+
+
+def _fixed_detections(data, i):
+    """A chain's output to export: the first GT objects 1.2 px off their
+    centers (refine snaps them back), one point between objects, and the
+    GT marks; the other objects are left to the backfill."""
+    gt = np.asarray(data.gt_centers, np.float32)[:4]
+    centers = np.concatenate([gt + np.float32(1.2), [[5.0, 120.0]]]
+                             ).astype(np.float32)
+    marks = np.concatenate([np.asarray(data.gt_marks, np.float32)[:4],
+                            [[6.0, 0.5, 0.3]]]).astype(np.float32)
+    scores = np.linspace(3.0, 0.5, len(centers)).astype(np.float32) / (i + 1)
+    return centers, marks, scores
+
+
+@pytest.mark.parametrize("path", ["batched", "per_image"])
+def test_extensions_export_matches_jax(workspaces, monkeypatch, path):
+    """Refine, score blend and backfill at export: both packages'
+    MPPModel.infer, their chains replaced by the same fixed detections,
+    write the same DOTA files (detection lines to 1e-5) on the batched
+    path and on the per-image path (restarts: 2)."""
+    ws_j, ws_t = workspaces
+    name = f"mpp_ext_{path}"
+    cfg = _mpp_config(name, ["pos_oracle"], "shape_oracle")
+    cfg["inference"].update(EXTENSIONS)
+    if path == "per_image":
+        cfg["inference"]["restarts"] = 2
+
+    def fake_batch(cls):
+        def run(datas, *a, **k):
+            return [cls(*_fixed_detections(d, i)) for i, d in
+                    enumerate(datas)]
+        return run
+
+    def fake_one(cls):
+        def run(data, *a, **k):
+            return cls(*_fixed_detections(data, 0))
+        return run
+
+    monkeypatch.setattr(jscene, "run_exact_scenes_batched",
+                        fake_batch(jscene.SceneResult))
+    monkeypatch.setattr(jmm, "run_mpp_on_scene",
+                        fake_one(jscene.SceneResult))
+    monkeypatch.setattr(tmm, "run_exact_scenes_batched",
+                        fake_batch(tscene.SceneResult))
+    monkeypatch.setattr(tmm, "run_exact_scene", fake_one(tscene.SceneResult))
+    with inside(ws_j):
+        _mpp_store(ws_j, cfg)
+        jmm.MPPModel(cfg, load=True).infer(subset="val")
+    with inside(ws_t):
+        _mpp_store(ws_t, cfg)
+        port = tmm.MPPModel(cfg, load=True, device="cpu")
+        port.infer(subset="val")
+    rj, rt = _results_dir(ws_j, name), _results_dir(ws_t, name)
+    snap_j, snap_t = dota_snapshot(rj), dota_snapshot(rt)
+    assert snap_t.keys() == snap_j.keys()
+    for key in snap_j:
+        if key.endswith(os.path.join("det", "vehicle.txt")):
+            _assert_det_lines_close(os.path.join(rj, key),
+                                    os.path.join(rt, key), atol=EXPORT_ATOL)
+        else:
+            assert snap_t[key] == snap_j[key], key
+    for i in range(N_IMAGES):
+        pt = load_results(os.path.join(rt, f"{i:04}_results.pkl"))
+        pj = load_results(os.path.join(rj, f"{i:04}_results.pkl"))
+        for key in ("detection_center", "detection_score",
+                    "detection_marks"):
+            np.testing.assert_allclose(pt[key], pj[key], atol=EXPORT_ATOL,
+                                       err_msg=key)
+        # backfill appended map peaks; refine moved the chain's centers
+        assert len(pt["detection_center"]) > 5
+        assert np.abs(pt["detection_center"][:4]
+                      - _fixed_detections_of(ws_t, i)[:4]).max() > 0.5
+        np.testing.assert_array_equal(port.results[i].centers,
+                                      pt["detection_center"])
+
+
+def _fixed_detections_of(ws, i):
+    with inside(ws):
+        data = t_load_image_w_maps(i, DATASET, "val", ["pos_oracle"],
+                                   "shape_oracle")
+    return _fixed_detections(data, 0)[0]
+
+
+def test_per_image_path_holds_one_scene(workspaces, monkeypatch):
+    """Without ``batch_scenes`` each scene is loaded, run, exported and
+    freed in its turn: when the next scene loads, the previous one's
+    ImageWMaps and its maps on the device are gone (weak references), and
+    ``MPPModel.results`` holds host arrays, no tensor."""
+    import gc
+    import weakref
+
+    import torch
+
+    ws_t = workspaces[1]
+    cfg = _mpp_config("mpp_one_scene", ["pos_oracle"], "shape_oracle")
+    cfg["inference"]["batch_scenes"] = False
+    cfg["inference"]["rjmcmc_params"]["stopping"]["max_iter"] = 200
+    alive_refs = []
+    loads = []
+    prepare = tscene._prepare
+
+    def recording_prepare(data, *a, **k):
+        out = prepare(data, *a, **k)
+        alive_refs.extend(weakref.ref(t) for t in (
+            out[0].detection_map, out[0].param_dist_maps))
+        return out
+
+    monkeypatch.setattr(tscene, "_prepare", recording_prepare)
+    with inside(ws_t):
+        _mpp_store(ws_t, cfg)
+        model = tmm.MPPModel(cfg, load=True, device="cpu")
+        load = model._load_image
+
+        def recording_load(patch_id, subset):
+            gc.collect()
+            loads.append([r() is not None for r in alive_refs])
+            data = load(patch_id, subset)
+            alive_refs.append(weakref.ref(data))
+            return data
+
+        model._load_image = recording_load
+        model.infer(subset="val")
+    assert len(loads) == N_IMAGES and len(alive_refs) == 3 * N_IMAGES
+    assert all(not any(flags) for flags in loads), loads
+    gc.collect()
+    assert not any(r() is not None for r in alive_refs)
+    assert sorted(model.results) == list(range(N_IMAGES))
+    for r in model.results.values():
+        assert r.chain is None and r.supersteps == 50
+        for f in dataclasses.fields(r):
+            v = getattr(r, f.name)
+            assert not isinstance(v, torch.Tensor), f.name
+            if isinstance(v, np.ndarray):
+                assert v.dtype != object
 
 
 def test_entry_points_default_to_cuda(workspaces, monkeypatch):

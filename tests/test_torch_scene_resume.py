@@ -1,7 +1,8 @@
 """The exact chain runner's segment checkpoint and stopping check in the PyTorch
-port: an interrupted batched run leaves a checkpoint, a rerun resumes each
-scene where it stood and ends with the uninterrupted run's configuration,
-and the stopping conditions decide as the JAX package's do."""
+port: an interrupted batched run leaves a checkpoint, a rerun resumes the
+batch where it stood and ends with the uninterrupted run's configuration,
+the batch stops jointly on the JAX package's summary, and the stopping
+conditions decide as the JAX package's do."""
 
 import logging
 import os
@@ -13,6 +14,7 @@ from mpp_cnn_rs_object_detection_torch.mpp import mpp_model as tmm
 from mpp_cnn_rs_object_detection_torch.mpp import stopping as tstop
 from mpp_cnn_rs_object_detection_torch.mpp.image_data import ImageWMaps
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import RJMCMCParams
+from mpp_cnn_rs_object_detection_torch.mpp import scene as tscene
 from mpp_cnn_rs_object_detection_torch.mpp.scene import (
     run_exact_scenes_batched,
 )
@@ -80,7 +82,9 @@ def test_interrupted_batch_resumes(tmp_path):
     first = _run(checkpoint_path=ck, max_segments=1)
     assert [r.supersteps for r in first] == [50, 50]
     saved = np.load(ck)
-    assert saved["done"].tolist() == [50, 50]
+    # one progress for the batch, as the JAX package's checkpoint holds
+    assert saved["done"].shape == () and int(saved["done"]) == 50
+    assert saved["fingerprint"][0] == tscene.CHECKPOINT_FORMAT == 2.0
     assert saved["xy"].shape[:2] == (2, first[0].capacity)
     resumed = _run(checkpoint_path=ck)
     assert not os.path.exists(ck)
@@ -102,7 +106,7 @@ def test_checkpoint_of_another_run_is_not_resumed(tmp_path):
         segment_size=SEGMENT, device="cpu", checkpoint_path=ck,
         max_segments=1)
     assert [r.supersteps for r in out] == [50, 50]
-    assert np.load(ck)["done"].tolist() == [50, 50]
+    assert int(np.load(ck)["done"]) == 50
 
 
 class _Interrupted(Exception):
@@ -150,18 +154,54 @@ def test_checkpoints_of_the_two_packages_are_not_shared(tmp_path,
         again = _run(checkpoint_path=ck, max_segments=1)
     assert "checkpoint mismatch" in caplog.text
     assert "resuming" not in caplog.text
-    assert np.load(ck)["done"].tolist() == [50, 50]
+    assert int(np.load(ck)["done"]) == 50
     for a, b in zip(again, first):
         np.testing.assert_array_equal(a.centers, b.centers)
         np.testing.assert_array_equal(a.marks, b.marks)
 
 
-def test_stopping_per_scene():
-    """max_iter at one segment (50 supersteps of 2 moves): each scene
-    stops after its first segment; with the budget's end beyond reach the
-    condition never fires."""
-    out = _run(stopping=tstop.StopOnMaxIter(max_iter=100))
+def test_stopping_per_scene(monkeypatch):
+    """The stopping block is evaluated once per segment over the whole
+    batch, not per scene: every scene stops at the same superstep, and the
+    summary the condition sees is the JAX batched run's (mean of the lanes'
+    final energies, their largest point count, summed accepts over summed
+    proposals) on the segment's lane stats. max_iter at one segment (50
+    supersteps of 2 moves) stops the batch after its first segment; with
+    the budget's end beyond reach the condition never fires."""
+    seen, stats = [], []
+
+    class Record(tstop.StopOnMaxIter):
+        def do_stop(self, summaries):
+            seen.append(summaries[-1])
+            return super().do_stop(summaries)
+
+    chain = tscene.run_exact_scene_chain
+
+    def recording_chain(*a, **k):
+        out = chain(*a, **k)
+        stats.append(out[2])
+        return out
+
+    monkeypatch.setattr(tscene, "run_exact_scene_chain", recording_chain)
+    out = _run(stopping=Record(max_iter=100))
     assert all(r.stopped and r.supersteps == 50 for r in out)
+    assert len(seen) == len(stats) == 1
+    st = stats[0]
+    assert st.final_energy.shape == (2,)
+    # the JAX batched run's summary (tpu/mpp/scene.py, run_exact_scenes_
+    # batched), on these lane stats
+    acc = float(np.sum(np.asarray(st.accepted)))
+    nprop = float(np.sum(np.asarray(st.proposed)))
+    want = jstop.SegmentSummary(
+        iter=50 * 2, energy=float(np.mean(np.asarray(st.final_energy))),
+        n_points=int(np.max(np.asarray(st.final_n_points))),
+        temperature=seen[0].temperature, accept_rate=acc / max(nprop, 1.0),
+        seconds=seen[0].seconds)
+    assert (seen[0].iter, seen[0].energy, seen[0].n_points,
+            seen[0].accept_rate) == (want.iter, want.energy, want.n_points,
+                                     want.accept_rate)
+    # the lanes differ, so per-scene summaries would not be this one
+    assert st.final_energy[0] != st.final_energy[1]
     out = _run(stopping=tstop.StopOnMaxIter(max_iter=10 ** 6))
     assert all(not r.stopped and r.supersteps == 100 for r in out)
 
