@@ -55,14 +55,29 @@ Phases (each prints one line with its seconds; any failure raises):
   8. a copy of that config with ``restarts: 2`` and ``polish_steps: 64``,
      which takes the per-image path (one scene in memory at a time): per
      scene the lanes' energies, the lane kept (the least energy) and U
-     before and after polish, which must not rise.
-Then one JSON line per kernel table, the card's name and power limit, and
-the result line ``{"ok": true, "device": {...}}`` last.
+     before and after polish, which must not rise;
+  9. on phase 6's workspace, ``-p train -m mpp`` on a copy of the flagship
+     config (depth cut: ``TRAIN_EPOCHS`` of its 8 epochs on
+     ``TRAIN_CROPS`` of its 64 crops): the train subset's CNN inference (3
+     kernel launches per scene), calibration, the ordering criterion over
+     kernel perturbations, and both files in the JAX package's format, a
+     finite loss per epoch and moved weights; then one batch alone (the
+     launches of one laned move, the peak memory of its vectors) and ``-p
+     infereval`` with the trained combiner: finite APs;
+  10. a copy of ``MANUAL_CONFIG`` (the legacy setup's manual mode) on the
+     flagship's CNNs: ``-p infereval`` calibrates (a finite threshold),
+     builds ``hierarchical_fixed`` (weights summing to 1 per group) and
+     runs one segment per scene: finite APs.
+Then one JSON line per kernel table (its launches: every path's, each
+counted from 0 -- phases 3, 6 and 9; the others reuse CNN results), the
+card's name and power limit, and the result line ``{"ok": true, "device":
+{...}}`` last.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -71,6 +86,11 @@ import tempfile
 import time
 
 MPP_CONFIG = "mpp_log_r12ttapar"
+# phase 9: the flagship trained for TRAIN_EPOCHS of its 8 epochs on
+# TRAIN_CROPS of its 64 crops (the depth cut; widths as configured)
+TRAIN_EPOCHS, TRAIN_CROPS = 2, 16
+# phase 10: the legacy manual mode in exact scene mode
+MANUAL_CONFIG = "mpp_exact_smoke"
 # phases 7 and 8: the trained extension config on the same CNNs
 EXT_CONFIG = "mpp_log_r12tta"
 RESTARTS, POLISH_STEPS = 2, 64
@@ -317,12 +337,15 @@ def load_models(config, device, seed: int):
     return models[:-1], models[-1]
 
 
-def mpp_config_copy(root: str, base: str, name: str, **inference) -> str:
+def mpp_config_copy(root: str, base: str, name: str, store: bool = True,
+                    blocks=None, **inference) -> str:
     """``model_configs/mpp/<base>.json`` for the synthetic dataset under
-    ``root``, named ``name`` (its model store gets ``base``'s trained
-    calibration and combiner), with the depth cut -- a ``max_iter``
-    stopping block of one 341-superstep segment per scene -- and
-    ``inference`` updated. Returns the config's path."""
+    ``root``, named ``name``, with the depth cut -- a ``max_iter`` stopping
+    block of one 341-superstep segment per scene -- the config's blocks
+    updated from ``blocks`` (block name -> entries) and its ``inference``
+    block from ``inference``. With ``store``, the model store gets
+    ``base``'s trained calibration and combiner. Returns the config's
+    path."""
     from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import (
         MODELS_ROOT,
         load_mpp_config,
@@ -343,12 +366,15 @@ def mpp_config_copy(root: str, base: str, name: str, **inference) -> str:
     cfg["inference"]["rjmcmc_params"]["stopping"] = {
         "kind": "max_iter", "max_iter": budget.seg_super * budget.mps}
     cfg["inference"].update(inference)
-    store = os.path.join(root, "models", "mpp", name)
-    os.makedirs(store)
-    for f in ("calibration.json", "energy_combination_model.json"):
-        shutil.copy(os.path.join(MODELS_ROOT, "mpp", base, f), store)
-    with open(os.path.join(store, "config.json"), "w") as f:
-        json.dump(cfg, f, indent=1)
+    for block, entries in (blocks or {}).items():
+        cfg[block].update(entries)
+    if store:
+        store_dir = os.path.join(root, "models", "mpp", name)
+        os.makedirs(store_dir)
+        for f in ("calibration.json", "energy_combination_model.json"):
+            shutil.copy(os.path.join(MODELS_ROOT, "mpp", base, f), store_dir)
+        with open(os.path.join(store_dir, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=1)
     path = os.path.join(root, name + ".json")
     with open(path, "w") as f:
         json.dump(cfg, f, indent=1)
@@ -412,20 +438,27 @@ def cli_workspace(root: str, config, device, seed: int) -> str:
     return mpp_config_copy(root, config["model_name"], config["model_name"])
 
 
-def run_cli(root: str, cfg_path: str, device):
-    """``-p infereval -m mpp -c cfg_path`` from ``root``; returns the model
-    and the seconds it took."""
-    from mpp_cnn_rs_object_detection_torch.__main__ import main as cli_main
-
+@contextlib.contextmanager
+def inside(root: str):
+    """Run from ``root``, whose ``paths_config.json`` the port reads."""
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        t0 = time.perf_counter()
-        model = cli_main(["-p", "infereval", "-m", "mpp", "-c", cfg_path],
-                         device=device)
-        return model, time.perf_counter() - t0
+        yield
     finally:
         os.chdir(cwd)
+
+
+def run_cli(root: str, cfg_path: str, device, procedure: str = "infereval"):
+    """``-p procedure -m mpp -c cfg_path`` from ``root``; returns the model
+    and the seconds it took."""
+    from mpp_cnn_rs_object_detection_torch.__main__ import main as cli_main
+
+    with inside(root):
+        t0 = time.perf_counter()
+        model = cli_main(["-p", procedure, "-m", "mpp", "-c", cfg_path],
+                         device=device)
+        return model, time.perf_counter() - t0
 
 
 def check_exports(root: str, model, name: str) -> dict:
@@ -438,12 +471,8 @@ def check_exports(root: str, model, name: str) -> dict:
         get_inference_path,
     )
 
-    cwd = os.getcwd()
-    os.chdir(root)
-    try:
+    with inside(root):
         results_dir = get_inference_path(name, "synth_smoke", "val")
-    finally:
-        os.chdir(cwd)
     assert sorted(model.results) == list(range(CLI_SCENES)), model.results
     for i in range(CLI_SCENES):
         assert os.path.exists(os.path.join(results_dir,
@@ -570,6 +599,196 @@ def restarts_phase(root: str, device) -> None:
           f"{POLISH_STEPS}, per-image path): {t_cli:.3f} s; load maps "
           f"{sec['load']:.3f} s; chains + polish {sec['chain']:.3f} s; "
           f"export {sec['export']:.3f} s; eval {sec['eval']:.3f} s; "
+          f"{ap_line(model, aps)}", flush=True)
+
+
+def profiled(fn):
+    """One call of ``fn`` under ``torch.profiler``: (device kernel
+    launches, device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    kernels = [e for e in prof.key_averages() if device_us(e) > 0
+               and "cuda" in str(e.device_type).lower()]
+    return (sum(int(e.count) for e in kernels),
+            sum(device_us(e) for e in kernels) / 1e3)
+
+
+def train_batch_probe(model, device, seed: int) -> dict:
+    """One batch of the ordering criterion at the trained config's widths,
+    alone: the kernel launches and device time of one laned move (the
+    batch's B x S lanes), the batch's perturbation and vector seconds, and
+    the peak device memory of its vectors (GT and perturbed configurations
+    in one laned call)."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp import kernels
+    from mpp_cnn_rs_object_detection_torch.mpp import train_weights as ttw
+    from mpp_cnn_rs_object_detection_torch.mpp.perturbations import (
+        sample_lanes,
+    )
+
+    oc = model.config["ordering_criterion"]
+    n_samples = oc["samples_per_image"]
+    batch = model.config["data_loader"]["batch_size"]
+    crops = model._sample_crops("train", batch)
+    setup = model.energy_setup
+    maps_b, kd_b, gt_b = ttw.prepare_batch(crops, setup, model.capacity,
+                                           device)
+    n_moves = max(1, int(oc["neg_pert_config"]["iter_per_point"] * max(
+        1, max(len(c.gt_centers) for c in crops))))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lanes = sample_lanes(gt_b, n_samples)
+    lanes = kernels.apply_proposal(lanes, kernels.sample_proposal(
+        gen, lanes, kd_b))  # warm
+    launches, dev_ms = profiled(lambda: kernels.apply_proposal(
+        lanes, kernels.sample_proposal(gen, lanes, kd_b)))
+    seconds = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vecs = ttw.ordering_vectors(gen, maps_b, kd_b, gt_b, setup.spec, n_moves,
+                                n_samples, ttw._Stages(seconds, device))
+    peak = torch.cuda.max_memory_allocated()
+    assert all(bool(torch.isfinite(v).all()) for v in vecs[::2])
+    return {"lanes": tuple(lanes.alive.shape[:2]), "n_moves": n_moves,
+            "capacity": model.capacity, "launches_per_move": launches,
+            "device_ms_per_move": dev_ms,
+            "perturb_s": seconds["perturb"], "vectors_s": seconds["vectors"],
+            "peak_gb": peak / 1e9, "peak_over_base_gb": (peak - base) / 1e9,
+            "pairs": vecs[2].shape[0] * (vecs[2].shape[1] + 1)
+            * model.capacity ** 2}
+
+
+def train_phase(root: str, config, device, seed: int) -> int:
+    """Phase 9: ``-p train -m mpp`` on a copy of the flagship config (depth
+    cut: ``TRAIN_EPOCHS`` epochs of ``TRAIN_CROPS`` crops), then ``-p
+    infereval`` with what it trained. Returns the detection-map launches
+    of the train (the train subset's CNN inference)."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+
+    name = f"{MPP_CONFIG}_trained"
+    cfg_path = mpp_config_copy(root, MPP_CONFIG, name, store=False, blocks={
+        "ordering_criterion": {"n_epochs": TRAIN_EPOCHS,
+                               "n_crops": TRAIN_CROPS}})
+    base = config["ordering_criterion"]
+    print(f"  train config: n_epochs {TRAIN_EPOCHS} of {base['n_epochs']}, "
+          f"n_crops {TRAIN_CROPS} of 64 (the depth cut); samples_per_image "
+          f"{base['samples_per_image']}, batch_size "
+          f"{config['data_loader']['batch_size']}, capacity "
+          f"{config['capacity']}, patch_size "
+          f"{config['dataset']['patch_size']}, iter_per_point "
+          f"{base['neg_pert_config']['iter_per_point']}", flush=True)
+    dk.KERNEL.launches = 0
+    model, t_train = run_cli(root, cfg_path, device, "train")
+    launches = dk.KERNEL.launches
+    n_pos = len(config["dataset"]["position_model"]) + 1
+    if launches != n_pos * CLI_SCENES:
+        raise AssertionError(f"train: expected {n_pos * CLI_SCENES} "
+                             f"detection-map launches, counted {launches}")
+    store = os.path.join(root, "models", "mpp", name)
+    with open(os.path.join(store, "energy_combination_model.json")) as f:
+        trained = json.load(f)
+    with open(os.path.join(store, "calibration.json")) as f:
+        cal = json.load(f)
+    losses = model.logger.log["loss"]
+    weights = np.asarray(trained["params"]["weights"])
+    moved = max(float(np.abs(weights - 1.0).max()),
+                abs(trained["params"]["bias"]))
+    print(f"  -p train: {t_train:.3f} s; combiner {trained['kind']} "
+          f"version {trained['version']}, weights moved by up to "
+          f"{moved:.4f} from their initial ones; losses {losses}; "
+          f"calibration {cal}", flush=True)
+    if trained["version"] != 2 or trained["kind"] != "logistic":
+        raise AssertionError(f"trained combiner {trained}")
+    if len(losses) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"train losses {losses}")
+    if not moved > 0.0:
+        raise AssertionError("the logistic weights did not move")
+    sec = model.train_seconds
+    print("  train seconds by stage: train-subset CNN inference "
+          f"{sec['cnn'] + sec['host']:.3f} (U-Net + kernel {sec['cnn']:.3f},"
+          f" host {sec['host']:.3f}); loading and cropping "
+          f"{sec['crops']:.3f}; calibration {sec['calibrate']:.3f}; batch "
+          f"maps {sec['prepare']:.3f}; perturbations {sec['perturb']:.3f}; "
+          f"vectors {sec['vectors']:.3f}; steps {sec['steps']:.3f}",
+          flush=True)
+    with inside(root):
+        probe = train_batch_probe(model, device, seed)
+    print(f"  one batch alone: {probe}", flush=True)
+    dk.KERNEL.launches = 0
+    model, t_inf = run_cli(root, cfg_path, device)
+    stops = {(r.supersteps, r.stopped) for r in model.results.values()}
+    if stops != {(341, True)}:
+        raise AssertionError(f"{name}: the batch did not stop jointly "
+                             f"after its first segment: {stops}")
+    aps = check_exports(root, model, name)
+    sec = model.seconds
+    print(f"  -p infereval with the trained combiner: {t_inf:.3f} s; chains "
+          f"{sec['chain']:.3f} s; eval {sec['eval']:.3f} s; detection-map "
+          f"launches {dk.KERNEL.launches} (CNN results reused); "
+          f"{ap_line(model, aps)}", flush=True)
+    return launches
+
+
+def manual_phase(root: str, config, device) -> None:
+    """Phase 10: the legacy manual mode, a copy of ``MANUAL_CONFIG`` on the
+    flagship's CNNs (phases 6 and 9's results reused): ``-p infereval``
+    calibrates, builds ``hierarchical_fixed`` and runs the exact chain of
+    each scene for one segment (the per-image path)."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+
+    name = f"{MANUAL_CONFIG}_flagship_cnns"
+    cfg_path = mpp_config_copy(root, MANUAL_CONFIG, name, store=False,
+                               blocks={"dataset": {
+                                   k: config["dataset"][k] for k in
+                                   ("position_model", "shape_model")}})
+    dk.KERNEL.launches = 0
+    model, t_cli = run_cli(root, cfg_path, device)
+    comb = model.energy_model
+    sums = {k: float(comb.params[k].sum()) for k in
+            ("data_weight", "prior_weight", "data_prior_weight")}
+    with open(os.path.join(root, "models", "mpp", name,
+                           "calibration.json")) as f:
+        cal = json.load(f)
+    print(f"  calibration {cal}; combiner {comb.kind}, weight sums {sums}",
+          flush=True)
+    if comb.kind != "hierarchical_fixed" or any(
+            abs(v - 1.0) > 1e-6 for v in sums.values()):
+        raise AssertionError(f"manual combiner {comb.kind} {sums}")
+    if not np.isfinite(cal["detection_threshold"]):
+        raise AssertionError(f"detection threshold {cal}")
+    stops = {(r.supersteps, r.stopped) for r in model.results.values()}
+    if stops != {(341, True)}:
+        raise AssertionError(f"{name}: not one segment per scene: {stops}")
+    aps = check_exports(root, model, name)
+    sec, tsec = model.seconds, model.train_seconds
+    caps = [r.capacity for r in model.results.values()]
+    print(f"  CLI -c {name}: {t_cli:.3f} s; calibration crops "
+          f"{tsec['crops']:.3f} s, calibration {tsec['calibrate']:.3f} s; "
+          f"load maps {sec['load']:.3f} s; chains {sec['chain']:.3f} s "
+          f"(capacities {caps}); eval {sec['eval']:.3f} s; detection-map "
+          f"launches {dk.KERNEL.launches} (CNN results reused); "
           f"{ap_line(model, aps)}", flush=True)
 
 
@@ -804,6 +1023,12 @@ def run(args, device: str = "cuda:0") -> int:
         t0 = time.perf_counter()
         restarts_phase(root, device)
         phase("8 restarts and polish, per-image path", t0)
+        t0 = time.perf_counter()
+        launches_train = train_phase(root, config, device, args.seed)
+        phase("9 CLI train -m mpp, then infereval", t0)
+        t0 = time.perf_counter()
+        manual_phase(root, config, device)
+        phase(f"10 CLI infereval -c {MANUAL_CONFIG} (manual mode)", t0)
     finally:
         shutil.rmtree(root)
 
@@ -813,9 +1038,13 @@ def run(args, device: str = "cuda:0") -> int:
           f"{host_ms:.4f} ms paced by the host; plain {p_ms:.4f} ms; bound "
           f"{bound:.4f} ms (bytes); {100 * bound / k_ms:.1f} % of the bound",
           flush=True)
+    print(f"  detection-map launches by path: in memory {launches_cnn}, CLI "
+          f"infereval {launches}, CLI train {launches_train}; phases 7, 8 "
+          f"and 10 reuse the CNN results", flush=True)
     kernels = [{
         "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
-        "replaces": dk.KERNEL.replaces, "launches": launches,
+        "replaces": dk.KERNEL.replaces,
+        "launches": launches_cnn + launches + launches_train,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
     }]

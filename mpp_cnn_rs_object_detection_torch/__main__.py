@@ -2,6 +2,8 @@
 
     python -m mpp_cnn_rs_object_detection_torch -m {posnet,shapenet,mpp} \
         -p {infer,eval,infereval} -c CONFIG [-d DATASET] [-o] [-r] [-s SUBSET]
+    python -m mpp_cnn_rs_object_detection_torch -m mpp -p train -c CONFIG \
+        [-d DATASET] [-o] [-r]
     python -m mpp_cnn_rs_object_detection_torch -p make_synth [-c CONFIG]
 
 It runs on the CUDA device; ``main(argv, device="cpu")`` runs it on the
@@ -17,10 +19,10 @@ import logging
 import sys
 
 # procedures and models of main.py that are not ported -> ROADMAP.md item
-_NOT_PORTED_PROCEDURES = {"train": "9 (MPP) and 12 (CNNs)",
-                          "data_preview": "16", "translate_dota": "16",
+_NOT_PORTED_PROCEDURES = {"data_preview": "16", "translate_dota": "16",
                           "translate_cowc": "16", "check_div": "16"}
 _NOT_PORTED_MODELS = {"oracle": "14", "fasterrcnn": "14", "bbavec": "14"}
+_NOT_PORTED_TRAIN = {"posnet": "12", "shapenet": "12"}
 
 
 def parse_args(argv=None):
@@ -76,6 +78,11 @@ def main(argv=None, device=None):
         raise NotImplementedError(
             f"model {args.model} is not ported (ROADMAP.md item "
             f"{_NOT_PORTED_MODELS[args.model]})")
+    train = args.procedure == "train"
+    if train and args.model in _NOT_PORTED_TRAIN:
+        raise NotImplementedError(
+            f"training {args.model} is not ported (ROADMAP.md item "
+            f"{_NOT_PORTED_TRAIN[args.model]})")
     config = load_config(args)
     if args.model == "posnet":
         from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
@@ -94,10 +101,14 @@ def main(argv=None, device=None):
     else:
         from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import MPPModel
 
-        model = MPPModel(config, overwrite=args.overwrite, load=True,
-                         dataset=args.dataset, device=device)
+        model = MPPModel(config, phase="train" if train else "infer",
+                         overwrite=args.overwrite,
+                         load=args.resume or not train, dataset=args.dataset,
+                         device=device)
 
-    if args.procedure == "infer":
+    if train:
+        model.train()
+    elif args.procedure == "infer":
         model.infer(subset=args.subset, overwrite=args.overwrite)
     elif args.procedure == "eval":
         model.eval()

@@ -6,9 +6,10 @@ mark value for the mark maps), pair energies are (K, K) matrices masked by
 alive x alive and the interaction radius, reduced per row.
 
 The chain's functions take states and maps with one leading lane axis B
-(``mpp/state.py``): lane b's points read lane b's maps. The one-config
-references (``energy_vectors``, ``total_energy``) add a lane of one at
-their boundary.
+(``mpp/state.py``): lane b's points read lane b's maps; weight training's
+``lane_energy_vectors`` takes several configurations per lane. The
+one-config references (``energy_vectors``, ``total_energy``) add a lane of
+one at their boundary.
 """
 
 from __future__ import annotations
@@ -214,48 +215,65 @@ def data_columns(state: PointsState, maps: EnergyMaps, spec: EnergySpec):
 
 
 def pair_terms(state: PointsState, spec: EnergySpec):
-    """Reduced pair energies (overlap (K,), alignment (K,)); a point with no
-    interacting neighbour gets 0 for that term."""
+    """Reduced pair energies (overlap (..., K), alignment (..., K)) of
+    configurations with any leading axes; a point with no interacting
+    neighbour gets 0 for that term. The quad clipping runs in chunks of
+    pairs of every configuration together
+    (``ops/geometry.py:quad_intersection_area_matrix``)."""
     k = state.capacity
-    dist = torch.linalg.vector_norm(state.xy[:, None] - state.xy[None], dim=-1)
-    eye = torch.eye(k, dtype=torch.bool, device=state.xy.device)
-    alive_pair = state.alive[:, None] & state.alive[None, :] & ~eye
-    polys = marks_to_poly(state.xy, state.marks[:, 0], state.marks[:, 1],
-                          state.marks[:, 2])
+    xy, m = state.xy, state.marks
+    dist = torch.linalg.vector_norm(xy[..., :, None, :] - xy[..., None, :, :],
+                                    dim=-1)
+    eye = torch.eye(k, dtype=torch.bool, device=xy.device)
+    alive_pair = state.alive[..., :, None] & state.alive[..., None, :] & ~eye
+    polys = marks_to_poly(xy, m[..., 0], m[..., 1], m[..., 2])
     inter = quad_intersection_area_matrix(polys, polys)
-    areas = rect_area(state.marks[:, 0], state.marks[:, 1])
-    overlap = inter / (torch.minimum(areas[:, None], areas[None, :]) + 1e-6)
+    areas = rect_area(m[..., 0], m[..., 1])
+    overlap = inter / (torch.minimum(areas[..., :, None], areas[..., None, :])
+                       + 1e-6)
     ov_mask = alive_pair & (dist <= spec.overlap_max_dist)
     overlap_red = torch.where(
-        ov_mask.any(dim=1),
-        torch.where(ov_mask, overlap, -torch.inf).amax(dim=1), 0.0)
+        ov_mask.any(dim=-1),
+        torch.where(ov_mask, overlap, -torch.inf).amax(dim=-1), 0.0)
 
-    dangle = state.marks[:, None, 2] - state.marks[None, :, 2]
+    dangle = m[..., :, None, 2] - m[..., None, :, 2]
     align = 1.0 - torch.abs(torch.cos(dangle)) - float(spec.rewarding_align)
     al_mask = alive_pair & (dist <= spec.align_max_dist)
     if spec.rewarding_align:
-        align_red = torch.where(al_mask, align, torch.inf).amin(dim=1)
+        align_red = torch.where(al_mask, align, torch.inf).amin(dim=-1)
     else:
-        align_red = torch.where(al_mask, align, -torch.inf).amax(dim=1)
-    align_red = torch.where(al_mask.any(dim=1), align_red, 0.0)
+        align_red = torch.where(al_mask, align, -torch.inf).amax(dim=-1)
+    align_red = torch.where(al_mask.any(dim=-1), align_red, 0.0)
     return overlap_red, align_red
+
+
+def lane_energy_vectors(state: PointsState, maps: EnergyMaps,
+                        spec: EnergySpec) -> torch.Tensor:
+    """(B, ..., K, n_energies) per-point energy vectors (0 rows at dead
+    slots) of configurations (B, ..., K) -- any number of them per lane,
+    such as an image's GT and its perturbed samples -- each lane b reading
+    lane b's (B, ...) maps."""
+    overlap_red, align_red = pair_terms(state, spec)
+    m = state.marks
+    area = rect_area(m[..., 0], m[..., 1])
+    area_prior = torch.clamp(torch.maximum(
+        lane_view(maps.min_area, area.ndim) - area,
+        area - lane_view(maps.max_area, area.ndim)), min=0.0)
+    cols = data_columns(state, maps, spec)
+    cols.extend([overlap_red, align_red, area_prior])
+    if spec.use_ratio_prior:
+        cols.append(torch.abs(lane_view(maps.target_ratio, area.ndim)
+                              - m[..., 1]))
+    vec = torch.stack(cols, dim=-1)
+    assert vec.shape[-1] == spec.n_energies, (vec.shape, spec.names)
+    return torch.where(state.alive[..., None], vec, 0.0)
 
 
 def energy_vectors(state: PointsState, maps: EnergyMaps, spec: EnergySpec
                    ) -> torch.Tensor:
-    """(K, n_energies) per-point energy vectors (0 rows at dead slots)."""
-    overlap_red, align_red = pair_terms(state, spec)
-    area = rect_area(state.marks[:, 0], state.marks[:, 1])
-    area_prior = torch.clamp(
-        torch.maximum(maps.min_area - area, area - maps.max_area), min=0.0)
-    cols = [c[0] for c in data_columns(expand_lanes(state, 1),
-                                       expand_lanes(maps, 1), spec)]
-    cols.extend([overlap_red, align_red, area_prior])
-    if spec.use_ratio_prior:
-        cols.append(torch.abs(maps.target_ratio - state.marks[:, 1]))
-    vec = torch.stack(cols, dim=-1)
-    assert vec.shape[-1] == spec.n_energies, (vec.shape, spec.names)
-    return torch.where(state.alive[:, None], vec, 0.0)
+    """(K, n_energies) per-point energy vectors of one configuration."""
+    return lane_energy_vectors(expand_lanes(state, 1), expand_lanes(maps, 1),
+                               spec)[0]
 
 
 def total_energy(state: PointsState, maps: EnergyMaps, spec: EnergySpec,

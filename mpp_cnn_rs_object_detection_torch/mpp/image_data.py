@@ -1,9 +1,10 @@
 """ImageWMaps: the CNN -> MPP data contract.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/image_data.py``
-(``ImageWMaps``, ``labels_to_marks``, ``load_image_w_maps``; cropping,
-splitting and merging are not ported). The maps may be numpy arrays or
-torch tensors; exact-scene inference moves them to its device once.
+(``ImageWMaps``, ``labels_to_marks``, ``load_image_w_maps`` and
+``crop_image_w_maps``; the tiled mode's splitting and merging are
+``ROADMAP.md`` item 10). The maps may be numpy arrays or torch tensors;
+exact-scene inference moves them to its device once.
 """
 
 from __future__ import annotations
@@ -85,4 +86,43 @@ def load_image_w_maps(patch_id, dataset: str, subset: str, position_model,
         detection_map=detection_map, param_dist_maps=param_dist_maps,
         mappings=shp["mappings"], labels=labels, gt_centers=centers,
         gt_marks=marks,
+    )
+
+
+def crop_image_w_maps(data: ImageWMaps, tl_anchor: np.ndarray,
+                      patch_size: int) -> ImageWMaps:
+    """The ``patch_size`` crop at ``tl_anchor`` (views of the maps), with
+    the labels whose centers fall inside it, in crop coordinates."""
+    tl = np.asarray(tl_anchor, int)
+    s = np.s_[tl[0]:tl[0] + patch_size, tl[1]:tl[1] + patch_size]
+    image_crop = data.image[s]
+    shape = image_crop.shape[:2]
+
+    keep, new_centers = [], []
+    centers = np.asarray(data.labels["centers"]).reshape(-1, 2)
+    for j, c in enumerate(centers):
+        nc = c - tl
+        if np.all(nc >= 0) and np.all(nc < np.array(shape)):
+            keep.append(j)
+            new_centers.append(nc)
+    keep = np.array(keep, int)
+
+    def kept(key):
+        a = np.asarray(data.labels[key])
+        return a[keep] if len(a.shape) else np.array([])
+
+    labels = {
+        "centers": np.array(new_centers).reshape(-1, 2),
+        "parameters": np.asarray(data.labels["parameters"]).reshape(-1, 3)[
+            keep],
+        "categories": kept("categories"),
+        "difficult": kept("difficult"),
+    }
+    centers2, marks2 = labels_to_marks(labels)
+    return ImageWMaps(
+        image=image_crop, name=data.name, shape=shape,
+        detection_map=data.detection_map[s],
+        param_dist_maps=[p[s] for p in data.param_dist_maps],
+        mappings=data.mappings, labels=labels, gt_centers=centers2,
+        gt_marks=marks2, crop_data={"tl_anchor": tl},
     )

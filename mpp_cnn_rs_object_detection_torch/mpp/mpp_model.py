@@ -3,8 +3,14 @@
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/mpp_model.py`` on its
 exact-scene path:
 
+  - ``MPPModel(config, load=False, phase="train")`` calibrates the energy
+    setup on object-biased crops of the train subset, and ``train()``
+    trains the combiner (the ordering or integral criterion) or builds the
+    config's manual one, writing ``calibration.json`` and
+    ``energy_combination_model.json`` in the JAX package's format;
   - ``MPPModel(config, load=True)`` reads the trained combiner and the
-    calibration from the model store; ``infer(subset)`` runs the CNN
+    calibration from the model store (a ``manual`` config without them
+    calibrates and builds its combiner); ``infer(subset)`` runs the CNN
     inference the dataset lacks (``ensure_cnn_inference``), assembles each
     image's maps from the result pickles, runs the exact chains -- all
     pending scenes as one batched program with ``batch_scenes``, else one
@@ -17,10 +23,11 @@ exact-scene path:
     ``eval()`` computes AP at each IoU threshold;
   - ``SceneInference`` runs the same models on in-memory images.
 
-Not ported: calibration and weight training (``ROADMAP.md`` item 9), the
-tiled scene mode (item 10), the superstep's split/merge and move switch
-(item 11), the meshes (item 15) and the detection/GT overlay PNGs (item
-16); a config that turns one on raises ``NotImplementedError``.
+Not ported: the tiled scene mode (``ROADMAP.md`` item 10), the
+superstep's split/merge and move switch (item 11), the meshes (item 15),
+and the detection/GT overlay PNGs and the energy attribution figure (item
+16); a config that turns one of the first three on raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,7 +61,10 @@ from mpp_cnn_rs_object_detection_torch.models.shapenet_model import (
 )
 from mpp_cnn_rs_object_detection_torch.mpp.combinators import (
     EnergyCombiner,
+    hierarchical_fixed,
     load_combiner,
+    manual_hierarchical,
+    save_combiner,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import (
     EnergySetup,
@@ -62,6 +72,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import (
 )
 from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
     ImageWMaps,
+    crop_image_w_maps,
     load_image_w_maps,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.refine import snap_centers_to_map
@@ -73,6 +84,10 @@ from mpp_cnn_rs_object_detection_torch.mpp.scene import (
 )
 from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
     stopping_from_config,
+)
+from mpp_cnn_rs_object_detection_torch.mpp.train_weights import (
+    train_integral_criterion,
+    train_ordering_criterion,
 )
 from mpp_cnn_rs_object_detection_torch.ops.geometry import rect_to_poly_np
 from mpp_cnn_rs_object_detection_torch.utils.config import (
@@ -96,6 +111,7 @@ CONFIG_DIR = os.path.join(REPO_ROOT, "model_configs", "mpp")
 _INFERENCE_OFF = {"scene_mesh": (False, 15), "batch_mesh": (False, 15)}
 _RJMCMC_OFF = {"superstep_split_merge": (False, 11),
                "superstep_move_switch": (False, 11)}
+TRAIN_MODES = ["manual", "integral_criterion", "ordering_criterion"]
 
 
 def load_mpp_config(name: str) -> Dict:
@@ -370,10 +386,12 @@ class MPPModel(BaseModel):
     def __init__(self, config: Dict, phase: str = "infer",
                  overwrite: bool = False, load: bool = False,
                  dataset: Optional[str] = None, device=None):
-        if not load:
-            raise NotImplementedError(
-                "MPP calibration and weight training are not ported "
-                "(ROADMAP.md item 9): load a trained model")
+        """``load``: read the trained combiner and calibration from the
+        model store, or -- none stored, and a ``manual`` block in the
+        config -- calibrate and build the manual combiner. Without ``load``
+        (``phase`` "train"), calibrate; ``train()`` then trains."""
+        if not load and phase != "train":
+            raise ValueError("MPPModel(load=False) is for phase 'train'")
         self.device = resolve_device(device)
         self.config, self.logger, self.save_path = startup_config(
             config, "mpp", overwrite=overwrite, load_model=load)
@@ -382,24 +400,38 @@ class MPPModel(BaseModel):
         self.dataset = self.config["dataset"]["dataset"]
         self.position_model = self.config["dataset"]["position_model"]
         self.shape_model = self.config["dataset"]["shape_model"]
+        self.patch_size = self.config["dataset"].get("patch_size", 256)
+        self.capacity = self.config.get("capacity", 256)
+        # every draw of calibration and training in the JAX package's order
+        self.rng = np.random.default_rng(0)
         self.energy_setup: EnergySetup = make_energy_setup(self.config)
-        comb_file = os.path.join(self.save_path,
-                                 "energy_combination_model.json")
-        if os.path.exists(comb_file):
-            self.energy_model = load_combiner(comb_file, device=self.device)
-            self.energy_setup.load_calibration(self.save_path)
-        elif "manual" in self.config:
-            raise NotImplementedError(
-                "the manual train mode is not ported (ROADMAP.md item 9)")
-        else:
-            raise FileNotFoundError(comb_file)
+        self.energy_model: Optional[EnergyCombiner] = None
         # seconds of the last infer/eval by stage: CNN inference (see
         # ensure_cnn_inference), "load" of the maps, "chain", "export" and
         # "eval"
         self.seconds: Dict[str, float] = {}
+        # seconds of calibration and training by stage: the train subset's
+        # CNN inference (ensure_cnn_inference's keys), "crops" (loading
+        # and cropping), "calibrate", and the trainer's stages
+        # (train_weights.TRAIN_STAGES)
+        self.train_seconds: Dict[str, float] = {}
         # what the last infer exported, by image id: host arrays and counts
         # (no chain state, no maps)
         self.results: Dict[int, SceneResult] = {}
+        comb_file = os.path.join(self.save_path,
+                                 "energy_combination_model.json")
+        if load:
+            if os.path.exists(comb_file):
+                self.energy_model = load_combiner(comb_file,
+                                                  device=self.device)
+                self.energy_setup.load_calibration(self.save_path)
+            elif self._find_train_mode() == "manual":
+                self.calibrate()
+                self.train()
+            else:
+                raise FileNotFoundError(comb_file)
+        else:
+            self.calibrate()
 
     def _image_ids(self, subset: str) -> List[int]:
         paths = fetch_data_paths(self.dataset, subset, metadata=False)
@@ -408,6 +440,107 @@ class MPPModel(BaseModel):
     def _load_image(self, patch_id: int, subset: str) -> ImageWMaps:
         return load_image_w_maps(patch_id, self.dataset, subset,
                                  self.position_model, self.shape_model)
+
+    def _add_seconds(self, seconds: Dict[str, float]) -> None:
+        for k, v in seconds.items():
+            self.train_seconds[k] = self.train_seconds.get(k, 0.0) + v
+
+    def _sample_crops(self, subset: str, n_crops: int) -> List[ImageWMaps]:
+        """Object-biased fixed-size crops: each centred near a random GT
+        object of a random image (jittered by up to a quarter of the crop),
+        or placed at random in an image without objects."""
+        self._add_seconds(ensure_cnn_inference(
+            self.dataset, subset, self.position_model, self.shape_model,
+            self.device))
+        t0 = time.perf_counter()
+        images = [self._load_image(i, subset)
+                  for i in self._image_ids(subset)]
+        crops = []
+        for _ in range(n_crops):
+            data = images[self.rng.integers(len(images))]
+            h, w = data.shape[:2]
+            ph = min(self.patch_size, h)
+            if len(data.gt_centers) > 0:
+                c = data.gt_centers[self.rng.integers(len(data.gt_centers))]
+                jitter = self.rng.integers(-ph // 4, ph // 4 + 1, size=2)
+                tl = np.clip(c.astype(int) + jitter - ph // 2, 0,
+                             [max(h - ph, 0), max(w - ph, 0)])
+            else:
+                tl = np.array([self.rng.integers(max(h - ph, 0) + 1),
+                               self.rng.integers(max(w - ph, 0) + 1)])
+            crops.append(crop_image_w_maps(data, tl, ph))
+        self._add_seconds({"crops": time.perf_counter() - t0})
+        return crops
+
+    def calibrate(self):
+        n_images = (self.config.get("calibration") or {}).get("n_images", 8)
+        crops = self._sample_crops("train", n_images)
+        t0 = time.perf_counter()
+        self.energy_setup.calibrate(crops, self.rng, self.save_path)
+        self._add_seconds({"calibrate": time.perf_counter() - t0})
+        logging.info("calibration done")
+
+    def _find_train_mode(self) -> Optional[str]:
+        modes = [t for t in TRAIN_MODES if t in self.config]
+        if len(modes) > 1:
+            raise ValueError(f"multiple train modes {modes}")
+        return modes[0] if modes else None
+
+    def train(self):
+        """Build (``manual``) or train (the ordering or integral criterion)
+        the combiner and write ``energy_combination_model.json``."""
+        if self.energy_setup.calibration is None:
+            try:
+                self.energy_setup.load_calibration(self.save_path)
+            except FileNotFoundError:
+                self.calibrate()
+        mode = self._find_train_mode()
+        names = self.energy_setup.spec.names
+        if mode == "manual":
+            manual = self.config["manual"]
+            if (self.config.get("energy_setup") or "legacy") == "legacy":
+                dp = np.array([manual["Data"], manual["Prior"]], float)
+                wd = np.array([manual["PositionEnergy"],
+                               manual["ShapeEnergy"]], float)
+                wp = np.array([manual["RectangleOverlapEnergy"],
+                               manual["ShapeAlignmentEnergy"],
+                               manual["AreaPriorEnergy"]], float)
+                self.energy_model = hierarchical_fixed(
+                    names, weights_data=wd / wd.sum(),
+                    weights_prior=wp / wp.sum(),
+                    data_prior_weights=dp / dp.sum(),
+                    threshold=manual.get("threshold", 0.0),
+                    device=self.device)
+            else:
+                self.energy_model = manual_hierarchical(
+                    names, weights_dict=manual["weights"],
+                    indicator_energy=manual.get("indicator_energy",
+                                                "PositionEnergy"),
+                    threshold=manual.get("threshold", 0.0),
+                    device=self.device)
+        elif mode in ("ordering_criterion", "integral_criterion"):
+            cfg = dict(self.config[mode])
+            n_crops = cfg.pop("n_crops", 64)
+            crops = self._sample_crops("train", n_crops)
+            batch_size = (self.config.get("data_loader") or {}).get(
+                "batch_size", 8)
+            fn = (train_ordering_criterion if mode == "ordering_criterion"
+                  else train_integral_criterion)
+            self.energy_model = fn(
+                crops, self.energy_setup, logger=self.logger,
+                save_dir=self.save_path, rng=self.rng, batch_size=batch_size,
+                capacity=self.capacity, device=self.device,
+                seconds=self.train_seconds, **cfg)
+        else:
+            raise NotImplementedError(
+                f"no train mode in config ({TRAIN_MODES})")
+        save_combiner(os.path.join(self.save_path,
+                                   "energy_combination_model.json"),
+                      self.energy_model)
+        logging.info("saved energy_combination_model.json")
+        logging.warning("the energy attribution figure "
+                        "(figures/energy_attribution.png) is not ported "
+                        "(ROADMAP.md item 16)")
 
     def infer(self, subset: str = "val", overwrite: bool = True, **kwargs):
         """Chains and export of every val scene. With ``batch_scenes`` (no

@@ -48,10 +48,13 @@ from mpp_cnn_rs_object_detection_torch.mpp.kernels import (
     MAX_DELTA,
     WINDOW,
     KernelData,
+    _categorical,
     _class_to_value,
     _log,
     _normal_logpdf,
+    _take,
     _value_to_class,
+    _windows,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
     ChainStats,
@@ -145,36 +148,6 @@ def _randn(gens, *shape, device):
 
 def _randint(gens, low: int, high: int, *shape, device):
     return _draw(gens, torch.randint, low, high, shape, device=device)
-
-
-def _categorical(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """Draw along the last dim with weights ``probs + EPS`` -- the law of
-    ``jax.random.categorical(key, log(probs + EPS))`` -- by inverting the
-    CDF at ``u`` in (0, 1]."""
-    cdf = torch.cumsum(probs + EPS, dim=-1)
-    idx = (cdf < u[..., None] * cdf[..., -1:]).sum(dim=-1)
-    return torch.clamp(idx, max=probs.shape[-1] - 1)
-
-
-def _windows(img: torch.Tensor, lead: tuple, r0: torch.Tensor,
-             c0: torch.Tensor, ar: torch.Tensor) -> torch.Tensor:
-    """(B, m, size, size) windows, ``size = len(ar)`` (``ar`` its arange),
-    starting at (r0, c0) (each (B, m)) of ``img``, whose leading axes
-    ``lead`` indexes: the lane of a (B, H, W) image, or the lane and the
-    cell of a (B, m, H, W) one. Starts are clamped into range as
-    ``lax.dynamic_slice`` does."""
-    hh, ww = img.shape[-2], img.shape[-1]
-    size = ar.shape[0]
-    r0 = torch.clamp(r0, 0, hh - size)
-    c0 = torch.clamp(c0, 0, ww - size)
-    rows = (r0[..., None] + ar)[..., :, None]
-    cols = (c0[..., None] + ar)[..., None, :]
-    return img[lead + (rows, cols)]
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[..., idx] along the last dim (idx broadcast over trailing dims)."""
-    return torch.gather(x, -1, idx[..., None])[..., 0]
 
 
 def _lane_rows(idx: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
