@@ -73,13 +73,10 @@ class EnergySetup:
     def detection_threshold(self) -> float:
         raise NotImplementedError
 
-    def make_kernel_data(self, data: ImageWMaps, intensity: float,
-                         kernel_weights=None, use_split_merge: bool = False
+    def make_kernel_data(self, data: ImageWMaps, intensity: float
                          ) -> KernelData:
         return make_kernel_data(data.detection_map, data.param_dist_maps,
-                                data.mappings, intensity=intensity,
-                                kernel_weights=kernel_weights,
-                                use_split_merge=use_split_merge)
+                                data.mappings, intensity=intensity)
 
     def load_calibration(self, save_dir: str):
         with open(os.path.join(save_dir, "calibration.json")) as f:

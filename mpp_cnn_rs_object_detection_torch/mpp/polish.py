@@ -22,6 +22,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
     EnergyMaps,
     EnergySpec,
 )
+from mpp_cnn_rs_object_detection_torch.mpp.optim import Optimizer
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
     build_cache,
     energy_from_cache,
@@ -30,28 +31,6 @@ from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
     expand_lanes,
 )
-
-# optax.adam's defaults
-B1, B2, EPS = 0.9, 0.999, 1e-8
-
-
-class _Adam:
-    """``optax.adam(lr)`` written out: moments, bias correction, and
-    ``eps`` added after the square root."""
-
-    def __init__(self, lr: float, like: torch.Tensor):
-        self.lr = lr
-        self.mu = torch.zeros_like(like)
-        self.nu = torch.zeros_like(like)
-        self.count = 0
-
-    def update(self, g: torch.Tensor) -> torch.Tensor:
-        self.mu = (1 - B1) * g + B1 * self.mu
-        self.nu = (1 - B2) * g * g + B2 * self.nu
-        self.count += 1
-        mu_hat = self.mu / (1 - B1 ** self.count)
-        nu_hat = self.nu / (1 - B2 ** self.count)
-        return -self.lr * (mu_hat / (torch.sqrt(nu_hat) + EPS))
 
 
 def polish_state(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
@@ -97,7 +76,8 @@ def polish_state(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
         # the "never worsens U" contract is against the raw chain state
         u0 = energy(xy, z)
     best_u, best_xy, best_z = u0, xy, z
-    opt_xy, opt_z = _Adam(lr_xy, xy), _Adam(lr_marks, z)
+    opt_xy = Optimizer({"xy": xy}, lr_xy)
+    opt_z = Optimizer({"z": z}, lr_marks)
     for _ in range(n_steps):
         u, g_xy, g_z = value_and_grad(xy, z)
         # u is the energy AT the incoming iterate: record that pairing
@@ -108,7 +88,8 @@ def polish_state(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
         # degenerate geometry can give non-finite gradients: drop them
         g_xy = torch.where(torch.isfinite(g_xy), g_xy, 0.0)
         g_z = torch.where(torch.isfinite(g_z), g_z, 0.0)
-        xy, z = project(xy + opt_xy.update(g_xy), z + opt_z.update(g_z))
+        xy, z = project(opt_xy.step({"xy": xy}, {"xy": g_xy})["xy"],
+                        opt_z.step({"z": z}, {"z": g_z})["z"])
     with torch.no_grad():
         u_f = energy(xy, z)  # the final iterate is itself a candidate
     take_final = u_f < best_u

@@ -12,11 +12,11 @@ Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/train_weights.py``:
 The energy vectors do not depend on the combiner's parameters, so they are
 computed without grad -- the B GT configurations and their B x S perturbed
 samples as one laned call (``energies.lane_energy_vectors``) -- and only
-``combine`` sits under torch autograd. Adam and SGD are written out with
-optax's formulas (``optax.adam`` / ``optax.sgd`` with
-``optax.exponential_decay(lr, transition_steps=1, decay_rate=gamma)``), so
-the two packages take the same steps on the same vectors. Both criteria
-return an ``EnergyCombiner``; its JSON is the model store's artifact.
+``combine`` sits under torch autograd. The steps are optax's formulas
+written out (``optim.Optimizer``), so the two packages take the same steps
+on the same vectors. Both criteria run on the CUDA device unless the caller
+passes ``device="cpu"``, and return an ``EnergyCombiner``; its JSON is the
+model store's artifact.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from mpp_cnn_rs_object_detection_torch.device import resolve_device
 from mpp_cnn_rs_object_detection_torch.mpp.combinators import (
     EnergyCombiner,
     combine,
@@ -45,6 +46,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
 from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import EnergySetup
 from mpp_cnn_rs_object_detection_torch.mpp.image_data import ImageWMaps
 from mpp_cnn_rs_object_detection_torch.mpp.kernels import KernelData
+from mpp_cnn_rs_object_detection_torch.mpp.optim import Optimizer
 from mpp_cnn_rs_object_detection_torch.mpp.perturbations import (
     PRESETS,
     sample_kernel_perturbed_batch,
@@ -57,8 +59,6 @@ from mpp_cnn_rs_object_detection_torch.mpp.state import (
 )
 
 NON_TRAINABLE = ("threshold", "raw_energy")
-# optax.adam's defaults
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # the stages a trainer times into its ``seconds`` dict
 TRAIN_STAGES = ("prepare", "perturb", "vectors", "steps")
 
@@ -94,40 +94,6 @@ def _masked_grads(params: Dict[str, torch.Tensor],
     return {k: (torch.zeros_like(v)
                 if k in NON_TRAINABLE or grads.get(k) is None else grads[k])
             for k, v in params.items()}
-
-
-class Optimizer:
-    """``optax.adam`` or ``optax.sgd`` (no momentum) with a learning rate
-    of ``lr * gamma ** count`` (``optax.exponential_decay`` with
-    ``transition_steps=1``; ``gamma`` None: constant), ``count`` counting
-    steps from 0. Adam's bias correction is at ``count + 1``."""
-
-    def __init__(self, params: Dict[str, torch.Tensor], lr: float,
-                 kind: str = "adam", gamma: Optional[float] = None):
-        self.lr, self.kind, self.gamma = lr, kind, gamma
-        self.count = 0
-        self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
-
-    def step(self, params: Dict[str, torch.Tensor], grads: Dict
-             ) -> Dict[str, torch.Tensor]:
-        step_size = (self.lr if self.gamma is None
-                     else self.lr * float(np.float32(self.gamma)
-                                          ** np.float32(self.count)))
-        self.count += 1
-        out = {}
-        for k, p in params.items():
-            g = grads[k]
-            if self.kind == "adam":
-                self.mu[k] = (1 - ADAM_B1) * g + ADAM_B1 * self.mu[k]
-                self.nu[k] = (1 - ADAM_B2) * g * g + ADAM_B2 * self.nu[k]
-                mu_hat = self.mu[k] / (1 - ADAM_B1 ** self.count)
-                nu_hat = self.nu[k] / (1 - ADAM_B2 ** self.count)
-                u = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
-            else:
-                u = g
-            out[k] = p - step_size * u
-        return out
 
 
 def _make_optimizer(params, learning_rate: float, optim: str,
@@ -222,6 +188,7 @@ def _train(crops: List[ImageWMaps], setup: EnergySetup, logger,
     ``rng`` (as the JAX package seeds its key), a ``rng.permutation`` of
     the crops per epoch, ``len(crops) // batch_size`` batches of vectors
     (``vectors_of``, without grad) and optimiser steps on ``loss_of``."""
+    device = resolve_device(device)
     comb = init_combiner(weight_model_type, setup.spec.names, device=device)
     opt = _make_optimizer(comb.params, learning_rate, optim, lr_scheduler,
                           lr_scheduler_params)
@@ -269,7 +236,7 @@ def train_ordering_criterion(crops: List[ImageWMaps], setup: EnergySetup,
                              lr_scheduler: bool = False,
                              lr_scheduler_params: Dict = None,
                              batch_size: int = 8, capacity: int = 256,
-                             device="cpu",
+                             device=None,
                              seconds: Optional[Dict[str, float]] = None,
                              **_unused) -> EnergyCombiner:
     """Ordering criterion over kernel perturbations: ``iter_per_point``
@@ -303,7 +270,7 @@ def train_integral_criterion(crops: List[ImageWMaps], setup: EnergySetup,
                              lr_scheduler: bool = False,
                              lr_scheduler_params: Dict = None,
                              batch_size: int = 8, capacity: int = 256,
-                             device="cpu",
+                             device=None,
                              seconds: Optional[Dict[str, float]] = None,
                              **_unused) -> EnergyCombiner:
     """Contrastive criterion: positives from the ``pos_pert`` preset (GT

@@ -7,7 +7,10 @@ setup, the ordering criterion, a logistic combiner; depth cut: 4 epochs of
 16 crops of 64 px, 4 samples per crop, capacity 64) in the port, and
 ``MPPModel(phase="train").train()`` in the JAX package; then both run
 ``infereval`` with what they trained. The calibration files agree, each
-package loads the other's combiner, and AP agrees within the stated band.
+package loads the other's combiner, and the two trained combiners give
+AP within the stated band through one chain. With the same perturbed
+configurations given to both trainers (the draws are threefry in one
+package and Philox in the other), the trained weights agree.
 The legacy manual mode (a copy of ``mpp_exact_smoke`` on the same maps)
 calibrates, builds ``hierarchical_fixed`` and runs infereval. Last, what
 still raises ``NotImplementedError``, with its ``ROADMAP.md`` item."""
@@ -27,25 +30,32 @@ from mpp_cnn_rs_object_detection_torch.mpp import combinators as tcomb
 from mpp_cnn_rs_object_detection_torch.mpp import energy_setups as tes
 from mpp_cnn_rs_object_detection_torch.mpp import mpp_model as tmm
 from mpp_cnn_rs_object_detection_tpu.mpp import combinators as jcomb
+from mpp_cnn_rs_object_detection_torch.mpp import train_weights as ttw
 from mpp_cnn_rs_object_detection_tpu.mpp import mpp_model as jmm
+from mpp_cnn_rs_object_detection_tpu.mpp import train_weights as jtw
 from tests import _torch_workspace as tw
 from tests._torch_util import one_torch_thread  # noqa: F401
+from tests.test_torch_train_weights import _fake_pert_j, _fake_pert_t
 
 DATASET = "synth_tr"
 N_IMAGES, SHAPE, N_RECT, SEED = 3, (128, 128), 56, 7
-# AP of the two packages' trained combiners. Over three training seeds
-# (the generator of the perturbations and the batch order; crops and chain
-# seeds fixed), the JAX package's own AP spans 0.020, 0.046 and 0.054 at
-# IoU 0.05, 0.5 and 0.75 (0.8426-0.8626, 0.6203-0.6665, 0.2466-0.3003), so
-# the band stays the chain's, tests/test_torch_pipeline.py's AP_TOL.
-# Through one chain, the two packages' trained combiners differ by at most
-# 0.054 (AP@0.5). The whole pipelines differ by 0.025 at most at this
-# test's seed. The chains' own spread is wider: one combiner over 5 sets
-# of chain seeds spans 0.584-0.729 (JAX) and 0.576-0.730 (port) at AP@0.5,
-# with means 0.655 and 0.639 (scripts/torch_train_ap_spread.py, CPU).
+# AP of the two packages' trained combiners through one chain (the port's,
+# at the same chain seeds), so the training draws alone differ. Over three
+# training seeds (the generator of the perturbations and the batch order;
+# crops and chain seeds fixed), the JAX package's own AP spans 0.020,
+# 0.046 and 0.054 at IoU 0.05, 0.5 and 0.75 (0.8426-0.8626, 0.6203-0.6665,
+# 0.2466-0.3003); through one chain the two packages' trained combiners
+# differ by at most 0.054 (AP@0.5). The band is that spread rounded up to
+# tests/test_torch_pipeline.py's AP_TOL. Two chains are not compared here:
+# one combiner over 5 sets of chain seeds spans 0.145 (JAX) and 0.154
+# (port) at AP@0.5, wider than the band (PERF.md, open questions).
 AP_TOL = 0.1
 # calibration areas: float32 in another library
 AREA_RTOL = 1e-6
+# trained weights from the same perturbed configurations: real energy
+# vectors, float32 in each package, through 16 Adam steps (4.4e-6 apart at
+# this test's seed), held to the 20-step test's PARAM_ATOL
+REPLAY_ATOL = 1e-4
 
 
 def _config(base, name, **ordering):
@@ -96,6 +106,22 @@ def trained(tmp_path_factory):
                           device="cpu")
         tm = t_main(["-p", "infereval", "-m", "mpp", "-c", str(path)],
                     device="cpu")
+    # the same perturbations in both trainers: functions of the GT
+    # configuration and the sample index
+    replay = dict(cfg, model_name="mpp_replay")
+    path = ws_t / "mpp_replay.json"
+    path.write_text(json.dumps(replay))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtw, "sample_kernel_perturbed_batch",
+                   lambda key, gt, kd, n_moves, n: _fake_pert_j(gt, n))
+        mp.setattr(ttw, "sample_kernel_perturbed_batch",
+                   lambda gen, gt, kd, n_moves, n: _fake_pert_t(gt, n))
+        with tw.inside(ws_j):
+            jmm.MPPModel(json.loads(json.dumps(replay)),
+                         phase="train").train()
+        with tw.inside(ws_t):
+            t_main(["-p", "train", "-m", "mpp", "-c", str(path)],
+                   device="cpu")
     return dict(ws_j=ws_j, ws_t=ws_t, cfg=cfg, train=tm_train, port=tm)
 
 
@@ -138,15 +164,30 @@ def test_each_package_loads_the_others_combiner(trained):
             atol=1e-6)
 
 
+def test_training_matches_jax_on_the_same_perturbations(trained):
+    """The CLI train with JAX's perturbation sampler and the port's both
+    replaced by one function of the GT configuration: the crops, the
+    calibration, the batch order, the energy vectors and the Adam steps
+    are each package's own, and the trained weights agree."""
+    got, want = (json.loads((_store(trained[ws], "mpp_replay")
+                             / "energy_combination_model.json").read_text())
+                 for ws in ("ws_t", "ws_j"))
+    assert got["kind"] == want["kind"] == "logistic"
+    assert got["params"].keys() == want["params"].keys()
+    for k, v in want["params"].items():
+        np.testing.assert_allclose(got["params"][k], v, atol=REPLAY_ATOL,
+                                   err_msg=k)
+    assert max(abs(w - 1.0) for w in got["params"]["weights"]) > 1e-2
+
+
 def test_trained_ap_agrees_with_jax(trained):
-    """Each package's pipeline with its own trained combiner; then the
-    JAX-trained combiner through the port's chain against the port-trained
-    one (the same chain, so the training's difference alone)."""
+    """Each package's pipeline with its own trained combiner runs to
+    finite APs; then the JAX-trained combiner through the port's chain
+    against the port-trained one (the same chain and chain seeds, so the
+    training's difference alone)."""
     ws_j, ws_t = trained["ws_j"], trained["ws_t"]
     aj, at = _aps(ws_j, "mpp_trained"), _aps(ws_t, "mpp_trained")
-    for key in aj:
-        assert np.isfinite([aj[key], at[key]]).all()
-        assert abs(aj[key] - at[key]) <= AP_TOL, (key, aj[key], at[key])
+    assert np.isfinite(list(aj.values()) + list(at.values())).all()
     assert min(aj["", 0.05], at["", 0.05]) > 0.3, (aj, at)
     assert sorted(trained["port"].results) == list(range(N_IMAGES))
     cfg = dict(trained["cfg"], model_name="mpp_trained_jax")

@@ -304,7 +304,7 @@ def test_training_matches_jax(monkeypatch, criterion, kind, optim):
     kw = dict(logger=None, save_dir=None, n_epochs=10, samples_per_image=3,
               learning_rate=0.05, optim=optim, weight_model_type=kind,
               lr_scheduler=True, lr_scheduler_params={"gamma": 0.9},
-              batch_size=2, capacity=16, reg_weight=0.01)
+              batch_size=2, capacity=16, reg_weight=0.01, device="cpu")
     fn = "train_ordering_criterion" if criterion == "ordering" else \
         "train_integral_criterion"
     jc = getattr(jtw, fn)(_crops("jax"), _setup("jax"),
@@ -415,7 +415,7 @@ def test_ordering_criterion_learns_separation():
     comb = ttw.train_ordering_criterion(
         crops, setup, logger=None, save_dir=None,
         rng=np.random.default_rng(2), n_epochs=3, samples_per_image=4,
-        batch_size=2, capacity=16)
+        batch_size=2, capacity=16, device="cpu")
     report = tcomb.combiner_as_report_dict(comb)
     assert max(abs(v - 1.0) for k, v in report.items()
                if k.endswith("_weight")) > 1e-3, report
@@ -426,3 +426,15 @@ def test_ordering_criterion_learns_separation():
     with torch.no_grad():
         assert float(ttw.ordering_loss(comb, vec_gt, alive_gt, vec_p,
                                        alive_p)) < 0.0
+
+
+@pytest.mark.parametrize("fn", ["train_ordering_criterion",
+                                "train_integral_criterion"])
+def test_trainers_default_to_the_card(monkeypatch, fn):
+    """Called without a device, a trainer runs on the CUDA device: with
+    none present it raises instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(ttw, fn)(_crops("torch", n=2), _setup("torch"), logger=None,
+                         save_dir=None, rng=np.random.default_rng(0),
+                         n_epochs=1, batch_size=2, capacity=16)
