@@ -20,19 +20,26 @@ Stages:
                  (``run_exact_scenes_batched``);
   superstep      ms per superstep of the one-lane chain at the 1024 bucket
                  with K = 1024 (``bench.py``'s ``bench_superstep_cost``
-                 inputs: ``LEGACY_SPEC``, an empty state).
+                 inputs: ``LEGACY_SPEC``, an empty state);
+  sequential     ``bench.py``'s ``jax`` stage on the port: 16 sequential
+                 chains of one 256^2 tile (80 blobs) as the lanes of
+                 ``rjmcmc.run_chains_batch``, 3,000 steps from an empty
+                 state at K = 256: moves/s, median of 3 runs;
+  baseline       ``bench.py``'s ``baseline`` stage: a sequential chain in
+                 plain Python and numpy on the host (an object list, local
+                 dU with per-pair polygon clipping), 1,200 steps, median
+                 of 3 runs.
 
-The chains are depth-cut by default to their first segment (341 of the
-2,728 supersteps of the budget); the scene seconds are then projected to
-the full budget from the measured ms per superstep. ``--full`` runs the
-whole budget. ``bench.py``'s ``jax`` stage (sequential chains) and its
-``baseline`` stage (a sequential numpy chain) have no counterpart in the
-port yet (ROADMAP.md item 10) and are reported as absent.
+The scene chains are depth-cut by default to their first segment (341 of
+the 2,728 supersteps of the budget); the scene seconds are then projected
+to the full budget from the measured ms per superstep. ``--full`` runs the
+whole budget.
 
 Prints one JSON line last: the headline ``scene_seconds_per_scene_batched3``
 (projected) and, under ``extra``, every stage, the B = 1 and B = 3 ms per
-superstep, the card's ``nvidia-smi`` name and power limit, and whether the
-run was depth-cut. Without a CUDA device it raises unless ``--device cpu``
+superstep, the sequential chains' moves/s against the baseline's, the
+card's ``nvidia-smi`` name and power limit, and whether the run was
+depth-cut. Without a CUDA device it raises unless ``--device cpu``
 is given; a CPU run's numbers are CPU times, not device metrics.
 """
 
@@ -255,6 +262,139 @@ def stage_superstep(device, size: int, capacity: int, n_super: int) -> dict:
             "n_points": int(final.n_points)}
 
 
+def stage_sequential(device, size: int, n_chains: int, n_steps: int,
+                     capacity: int, n_runs: int) -> dict:
+    """``bench.py``'s ``bench_jax``: B sequential chains of one tile as
+    lanes, moves/s over ``n_runs`` timed runs (median, and every run)."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp.combinators import (
+        manual_hierarchical,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.energies import (
+        LEGACY_SPEC,
+        make_energy_maps,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.kernels import (
+        make_kernel_data,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+        run_chains_batch,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.state import (
+        empty_state,
+        expand_lanes,
+    )
+    from mpp_cnn_rs_object_detection_torch.ops.mappings import (
+        default_mappings,
+    )
+
+    det, dists = build_tile(size, size)
+    mappings = default_mappings(dists[0].shape[-1], 0, 32)
+    dists_t = [torch.from_numpy(d).to(device) for d in dists]
+    det_t = torch.from_numpy(det).to(device)
+    maps = make_energy_maps(det_t, [-d for d in dists_t], 0.5, 4.0, 200.0,
+                            mappings)
+    kd = make_kernel_data(det_t, dists_t, mappings, intensity=80.0)
+    comb = manual_hierarchical(LEGACY_SPEC.names, {
+        "PositionEnergy": 0.4, "ShapeEnergy": 0.1,
+        "RectangleOverlapEnergy": 0.3, "ShapeAlignmentEnergy": 0.025,
+        "AreaPriorEnergy": 0.1}, device=device)
+    init = expand_lanes(empty_state(capacity, device), n_chains)
+
+    def run(seed, steps):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        _, stats = run_chains_batch(gen, init, maps, LEGACY_SPEC, comb, kd,
+                                    n_steps=steps, alpha_t=0.999)
+        _sync(device)
+        return stats
+
+    run(0, 20)  # warm-up
+    runs, stats = [], None
+    for i in range(n_runs):
+        t0 = time.perf_counter()
+        stats = run(1 + i, n_steps)
+        runs.append(n_chains * n_steps / (time.perf_counter() - t0))
+    return {"moves_per_s": float(np.median(runs)), "runs": runs,
+            "chains": n_chains, "steps": n_steps, "capacity": capacity,
+            "tile": [size, size],
+            "ms_per_step": 1e3 * n_chains / float(np.median(runs)),
+            "n_found": float(stats.final_n_points.float().mean())}
+
+
+def baseline_chain(det, n_steps: int, seed: int = 0) -> tuple:
+    """``bench.py``'s ``bench_python_baseline``: a sequential chain in
+    plain Python -- births from the detection map, deaths and moves, local
+    dU with the overlap of every neighbour within 32 px by polygon
+    clipping. Returns (moves/s, final point count)."""
+    from mpp_cnn_rs_object_detection_torch.metrics.polyiou import (
+        poly_intersection_plain,
+    )
+
+    rng = np.random.default_rng(seed)
+    h, w = det.shape
+    flat = (det / det.sum()).ravel()
+    points = []  # dicts: x, y, size, ratio, angle
+
+    def poly_of(p):
+        length = 2 * p["size"] / (1 + p["ratio"])
+        width = p["ratio"] * length
+        a = p["angle"] + np.pi / 2
+        c, s = np.cos(a), np.sin(a)
+        hx, hy = length / 2, width / 2
+        corners = np.array([[hx, hy], [hx, -hy], [-hx, -hy], [-hx, hy]])
+        return corners @ np.array([[c, s], [-s, c]]) + np.array(
+            [p["x"], p["y"]])
+
+    def area(p):
+        return p["size"] ** 2 * 4 * p["ratio"] / (1 + p["ratio"]) ** 2
+
+    def local_energy(p, others):
+        e = -2.0 * (det[int(p["x"]), int(p["y"])] - 0.5)
+        pa = poly_of(p)
+        best_ov = 0.0
+        for q in others:
+            if q is p:
+                continue
+            if np.hypot(p["x"] - q["x"], p["y"] - q["y"]) <= 32:
+                inter = poly_intersection_plain(pa, poly_of(q))
+                best_ov = max(best_ov,
+                              inter / (min(area(p), area(q)) + 1e-6))
+        return e + best_ov
+
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        kind = rng.random()
+        if kind < 0.4 or not points:  # birth
+            idx = rng.choice(len(flat), p=flat)
+            p = {"x": idx // w, "y": idx % w, "size": rng.uniform(2, 16),
+                 "ratio": rng.uniform(0.2, 1), "angle": rng.uniform(0, np.pi)}
+            if np.log(rng.random() + 1e-16) < -local_energy(p, points):
+                points.append(p)
+        elif kind < 0.7:  # death
+            i = rng.integers(len(points))
+            if np.log(rng.random() + 1e-16) < local_energy(points[i],
+                                                           points):
+                points.pop(i)
+        else:  # move
+            i = rng.integers(len(points))
+            p = dict(points[i])
+            p["x"] = int(np.clip(p["x"] + rng.normal(0, 2), 0, h - 1))
+            p["y"] = int(np.clip(p["y"] + rng.normal(0, 2), 0, w - 1))
+            delta = local_energy(p, points) - local_energy(points[i], points)
+            if np.log(rng.random() + 1e-16) < -delta:
+                points[i] = p
+    return n_steps / (time.perf_counter() - t0), len(points)
+
+
+def stage_baseline(size: int, n_steps: int, n_runs: int) -> dict:
+    det, _ = build_tile(size, size)
+    runs = [baseline_chain(det, n_steps, seed=s)[0] for s in range(n_runs)]
+    return {"moves_per_s": float(np.median(runs)), "runs": runs,
+            "steps": n_steps, "protocol": f"{n_steps} steps x {n_runs} "
+            "runs, median, on the host CPU"}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
@@ -284,10 +424,15 @@ def main(argv=None) -> int:
         cnn = dict(size=64, batch=2, hidden=[8, 16], reps=2)
         scene = dict(size=128, n_obj=10, segment_size=600)
         sstep = dict(size=128, capacity=64, n_super=8)
+        seq = dict(size=64, n_chains=2, n_steps=10, capacity=16, n_runs=1)
+        base = dict(size=64, n_steps=30, n_runs=1)
     else:
         cnn = dict(size=256, batch=8, hidden=[32, 64, 128, 256], reps=10)
         scene = dict(size=1024, n_obj=200, segment_size=4096)
         sstep = dict(size=1024, capacity=1024, n_super=128)
+        seq = dict(size=256, n_chains=16, n_steps=3000, capacity=256,
+                   n_runs=3)
+        base = dict(size=256, n_steps=1200, n_runs=3)
 
     stages = {}
     t_all = time.perf_counter()
@@ -297,7 +442,9 @@ def main(argv=None) -> int:
                                           **scene)),
             ("scene_batched", lambda: stage_scene(
                 device, n_scenes=BATCH_SCENES, full=args.full, **scene)),
-            ("superstep", lambda: stage_superstep(device, **sstep))):
+            ("superstep", lambda: stage_superstep(device, **sstep)),
+            ("sequential", lambda: stage_sequential(device, **seq)),
+            ("baseline", lambda: stage_baseline(**base))):
         t0 = time.perf_counter()
         stages[name] = fn()
         print(f"# stage {name}: {time.perf_counter() - t0:.3f} s "
@@ -311,12 +458,10 @@ def main(argv=None) -> int:
             f"B{BATCH_SCENES}": stages["scene_batched"]["ms_per_superstep"]},
         "scene_seconds_per_scene": stages["scene"][
             "seconds_per_scene_projected"],
+        "sequential_moves_per_s": stages["sequential"]["moves_per_s"],
+        "sequential_vs_baseline": (stages["sequential"]["moves_per_s"]
+                                   / stages["baseline"]["moves_per_s"]),
         "stages": stages,
-        "absent": {
-            "jax": "sequential chains (rjmcmc.run_chains_batch): not ported, "
-                   "ROADMAP.md item 10",
-            "baseline": "the sequential numpy chain beside the jax stage: "
-                        "ROADMAP.md item 10"},
         "seconds": time.perf_counter() - t_all,
     }
     print(json.dumps({

@@ -67,7 +67,22 @@ Phases (each prints one line with its seconds; any failure raises):
   10. a copy of ``MANUAL_CONFIG`` (the legacy setup's manual mode) on the
      flagship's CNNs: ``-p infereval`` calibrates (a finite threshold),
      builds ``hierarchical_fixed`` (weights summing to 1 per group) and
-     runs one segment per scene: finite APs.
+     runs one segment per scene: finite APs;
+  11. a copy of ``TILED_CONFIG`` (tiled scene mode, sequential chain,
+     manual mode) on the flagship's CNNs, depth-cut to ``TILED_BURN_IN``
+     burn-in moves in segments of ``TILED_SEGMENT``: every scene's 25
+     tiles as the lanes of one chain, its post-burn-in samples, finite
+     APs and no checkpoint left; ms per step, the launches and device ms
+     of one step, the projected full-budget seconds; then one scene killed
+     after its first segment resumes from its checkpoint to the end;
+  12. a copy of ``SPLIT_MERGE_CONFIG`` (exact, batched, the superstep's
+     split/merge pair) with its trained calibration and combiner on the
+     flagship's CNNs for one 341-superstep segment: accepted moves by
+     kind, the carried cache and energy against a rebuild, finite APs;
+     then on phase 3's scene with the flagship's model one in-memory
+     segment with the split/merge pair and one with the switched move
+     type (their energies against a rebuild; splits and merges accepted),
+     and the launches and device ms of one superstep with each move set.
 Then one JSON line per kernel table (its launches: every path's, each
 counted from 0 -- phases 3, 6 and 9; the others reuse CNN results), the
 card's name and power limit, and the result line ``{"ok": true, "device":
@@ -78,7 +93,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
+import math
 import os
 import shutil
 import sys
@@ -91,6 +108,14 @@ MPP_CONFIG = "mpp_log_r12ttapar"
 TRAIN_EPOCHS, TRAIN_CROPS = 2, 16
 # phase 10: the legacy manual mode in exact scene mode
 MANUAL_CONFIG = "mpp_exact_smoke"
+# phase 11: the tiled scene mode, depth-cut (the full budget is 30,000
+# burn-in moves and 2 sampling intervals of 128, in segments of 4,096)
+TILED_CONFIG = "mpp_hrcM"
+TILED_BURN_IN, TILED_SEGMENT = 1024, 512
+# its resume check: 256 burn-in moves + 2 x 128, killed after 256
+RESUME_BURN_IN, RESUME_SEGMENT = 256, 256
+# phase 12: the superstep's split/merge pair, trained
+SPLIT_MERGE_CONFIG = "mpp_log_r10sm"
 # phases 7 and 8: the trained extension config on the same CNNs
 EXT_CONFIG = "mpp_log_r12tta"
 RESTARTS, POLISH_STEPS = 2, 64
@@ -477,8 +502,9 @@ def check_exports(root: str, model, name: str) -> dict:
     for i in range(CLI_SCENES):
         assert os.path.exists(os.path.join(results_dir,
                                            f"{i:04}_results.pkl"))
-        assert not os.path.exists(os.path.join(results_dir,
-                                               f"{i:04}_chains.ck.npz"))
+        for kind in ("chains", "tiles"):
+            assert not os.path.exists(os.path.join(
+                results_dir, f"{i:04}_{kind}.ck.npz")), kind
     assert not os.path.exists(os.path.join(results_dir,
                                            "batched_chains.ck.npz"))
     aps = {}
@@ -792,6 +818,285 @@ def manual_phase(root: str, config, device) -> None:
           f"{ap_line(model, aps)}", flush=True)
 
 
+def check_carried(chain, setup, comb, what: str) -> tuple:
+    """A chain's carried cache and energy against a rebuild on its final
+    state; returns (carried energy, rebuilt energy)."""
+    from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+        build_cache,
+        energy_from_cache,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.state import expand_lanes
+
+    state1, maps1 = expand_lanes(chain.state, 1), expand_lanes(chain.maps, 1)
+    fresh = build_cache(state1, maps1, setup.spec)
+    alive = chain.state.alive
+    pair = alive[:, None] & alive[None, :]
+    for f in ("dist", "overlap", "align"):
+        a, b = getattr(chain.cache, f)[pair], getattr(fresh, f)[0][pair]
+        diff = float((a - b).abs().max()) if a.numel() else 0.0
+        if diff > CACHE_TOL * max(1.0, float(b.abs().max()) if b.numel()
+                                  else 1.0):
+            raise AssertionError(f"{what}: carried cache {f} off by {diff}")
+    energy = float(chain.energy)
+    u_fresh = float(energy_from_cache(state1, maps1, setup.spec, comb,
+                                      fresh)[0])
+    if abs(u_fresh - energy) > 1e-3 * max(1.0, abs(u_fresh)):
+        raise AssertionError(f"{what}: carried energy {energy} against "
+                             f"{u_fresh} rebuilt")
+    return energy, u_fresh
+
+
+def sequential_step_probe(model, setup, comb, pid: int, device) -> dict:
+    """One sequential step of a scene's tiles as lanes, alone: its kernel
+    launches and device ms (``torch.profiler``), after two warm steps."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp.energies import (
+        stack_param_dists,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.image_data import split_image
+    from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+        build_cache,
+        energy_from_cache,
+        make_step_fn,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import (
+        pad_image_w_maps,
+        tile_lanes,
+    )
+
+    patch = model.config["dataset"].get("patch_size", 256)
+    data = pad_image_w_maps(model._load_image(pid, "val"), patch)
+    data.param_dist_maps = stack_param_dists(data.param_dist_maps,
+                                             device=device)
+    data.detection_map = torch.as_tensor(data.detection_map, device=device)
+    patches = split_image(data, patch, 32)
+    maps, kd, state = tile_lanes(patches, setup, model.capacity, "naive",
+                                 None, False, device)
+    step = make_step_fn(maps, setup.spec, comb, kd, 0.999, 0.0)
+    cache = build_cache(state, maps, setup.spec)
+    carry = (state, cache, energy_from_cache(state, maps, setup.spec, comb,
+                                             cache), 1.0)
+    gen = torch.Generator(device=device).manual_seed(0)
+    for _ in range(2):
+        carry, _ = step(carry, gen)
+    launches, dev_ms = profiled(lambda: step(carry, gen))
+    return {"tiles": len(patches), "launches_per_step": launches,
+            "device_ms_per_step": dev_ms}
+
+
+def tiled_phase(root: str, config, device) -> None:
+    """Phase 11: the tiled scene mode of a manual config on the flagship's
+    CNNs (phases 6 and 9's results reused), its chains depth-cut; then a
+    killed scene's resume from its checkpoint."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import run_tiled_scene
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+
+    name = f"{TILED_CONFIG}_flagship_cnns"
+    full = mpp_model.rjmcmc_params_from_config(
+        mpp_model.load_mpp_config(TILED_CONFIG))
+    cfg_path = mpp_config_copy(root, TILED_CONFIG, name, store=False,
+                               blocks={"dataset": {
+                                   k: config["dataset"][k] for k in
+                                   ("position_model", "shape_model")}},
+                               segment_size=TILED_SEGMENT)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    rj = cfg["inference"]["rjmcmc_params"]
+    rj.pop("stopping")  # exact segments only
+    rj["burn_in"] = TILED_BURN_IN
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    params = mpp_model.rjmcmc_params_from_config(cfg)
+    patch = cfg["dataset"].get("patch_size", 256)
+    # the tile grid of split_image (32 px overlap): 25 tiles at 958x926
+    n_tiles = math.prod(-(-max(n, patch) // (patch - 32))
+                        for n in (HEIGHT, WIDTH))
+    dk.KERNEL.launches = 0
+    model, t_cli = run_cli(root, cfg_path, device)
+    aps = check_exports(root, model, name)
+    results = [model.results[i] for i in sorted(model.results)]
+    for r in results:
+        if (r.n_tiles, r.supersteps, r.samples) != (
+                n_tiles, params.total_steps, 2):
+            raise AssertionError(f"{name}: tiles {r.n_tiles}, steps "
+                                 f"{r.supersteps} of {params.total_steps}, "
+                                 f"samples {r.samples}")
+        assert np.isfinite(r.scores).all() and (r.scores > 0).all()
+    ms_step = [1e3 * r.seconds["chain"] / r.supersteps for r in results]
+    with inside(root):
+        probe = sequential_step_probe(model, model.energy_setup,
+                                      model.energy_model, 0, device)
+    sec = model.seconds
+    print(f"  CLI -c {name} (tiled, sequential, manual; burn_in "
+          f"{TILED_BURN_IN} of {full.burn_in}, segments of {TILED_SEGMENT}):"
+          f" {t_cli:.3f} s; load maps {sec['load']:.3f} s; chains "
+          f"{sec['chain']:.3f} s; eval {sec['eval']:.3f} s; "
+          f"{results[0].n_tiles} tiles per scene (K = {model.capacity}), "
+          f"{params.total_steps} steps, {results[0].samples} samples "
+          f"collected per tile; detection-map launches {dk.KERNEL.launches} "
+          f"(CNN results reused); {ap_line(model, aps)}", flush=True)
+    print(f"  sequential step: {ms_step[0]:.3f} and {ms_step[1]:.3f} ms per "
+          f"step of {probe['tiles']} tile lanes (chain seconds / steps); one"
+          f" step alone: {probe['launches_per_step']} launches, "
+          f"{probe['device_ms_per_step']:.3f} device ms; projected full "
+          f"budget ({full.total_steps} steps): "
+          f"{np.mean(ms_step) * full.total_steps / 1e3:.1f} s per scene",
+          flush=True)
+    # a killed scene (one segment) resumes from its checkpoint
+    ck = os.path.join(root, "tiled_resume.ck.npz")
+    short = dataclasses.replace(params, n_steps=RESUME_BURN_IN)
+    kw = dict(seed=0, patch_size=patch, capacity=model.capacity,
+              segment_size=RESUME_SEGMENT, device=device)
+    with inside(root):
+        killed = run_tiled_scene(model._load_image(0, "val"),
+                                 model.energy_setup, model.energy_model,
+                                 short, checkpoint_path=ck, max_segments=1,
+                                 **kw)
+        written = os.path.exists(ck)
+        resumed = run_tiled_scene(model._load_image(0, "val"),
+                                  model.energy_setup, model.energy_model,
+                                  short, checkpoint_path=ck, **kw)
+    if killed is not None or not written or os.path.exists(ck) or \
+            resumed.supersteps != short.total_steps:
+        raise AssertionError(f"tiled resume: killed {killed}, checkpoint "
+                             f"written {written}, left {os.path.exists(ck)}")
+    print(f"  tiled checkpoint: a run of {short.total_steps} steps killed "
+          f"after its first segment of {RESUME_SEGMENT} wrote it and resumed"
+          f" to step {resumed.supersteps} ({len(resumed.centers)} "
+          f"detections, {resumed.samples} samples), then removed it",
+          flush=True)
+
+
+def superstep_probe(setup, comb, capacity: int, data, moves: dict,
+                    device) -> dict:
+    """One exact superstep of ``data`` alone with the ``moves`` flags: its
+    kernel launches and device ms, after two warm supersteps."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp import scene
+    from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import (
+        CELL,
+        make_parallel_step,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+        build_cache,
+        energy_from_cache,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.state import (
+        expand_lanes,
+        state_from_arrays,
+    )
+
+    target = scene.scene_shape_bucket(*data.shape)
+    data, c0, m0, _ = scene._prepare(data, setup, target, "naive", device)
+    cap = scene._capacity(*data.shape, capacity, len(c0))
+    maps = expand_lanes(setup.make_maps(data), 1)
+    kd = expand_lanes(setup.make_kernel_data(data, max(1, len(c0))), 1)
+    state = expand_lanes(state_from_arrays(c0[:cap], m0[:cap], capacity=cap,
+                                           device=device), 1)
+    h, w = data.shape
+    step = make_parallel_step(maps, setup.spec, comb, kd, 0.999, 0.0,
+                              max(h, w) // (2 * CELL) + 1, **moves)
+    cache = build_cache(state, maps, setup.spec)
+    carry = (state, cache, energy_from_cache(state, maps, setup.spec, comb,
+                                             cache), 1.0)
+    gens = [torch.Generator(device=device).manual_seed(0)]
+    types = [torch.Generator().manual_seed(0)]
+    for _ in range(2):
+        carry, _ = step(carry, gens, types)
+    launches, dev_ms = profiled(lambda: step(carry, gens, types))
+    return {"launches": launches, "device_ms": dev_ms}
+
+
+def split_merge_phase(root: str, config, device, inference, data) -> None:
+    """Phase 12: the trained split/merge config in exact batched mode on
+    the flagship's CNNs, one segment; then, on phase 3's scene with the
+    flagship's model (a populated configuration), one in-memory segment
+    with the split/merge pair and one with the switched move type, and
+    one superstep of each move set alone."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import run_exact_scene
+
+    name = f"{SPLIT_MERGE_CONFIG}_flagship_cnns"
+    base = mpp_model.load_mpp_config(SPLIT_MERGE_CONFIG)
+    assert base["inference"]["rjmcmc_params"]["superstep_split_merge"]
+    cfg_path = mpp_config_copy(root, SPLIT_MERGE_CONFIG, name,
+                               blocks={"dataset": {
+                                   k: config["dataset"][k] for k in
+                                   ("position_model", "shape_model")}})
+    captured = []
+    batched = mpp_model.run_exact_scenes_batched
+
+    def keep(*a, **k):
+        out = batched(*a, **k)
+        captured.extend(out)
+        return out
+
+    mpp_model.run_exact_scenes_batched = keep
+    try:
+        model, t_cli = run_cli(root, cfg_path, device)
+    finally:
+        mpp_model.run_exact_scenes_batched = batched
+    aps = check_exports(root, model, name)
+    if len(captured) != CLI_SCENES:
+        raise AssertionError(f"{name}: not one batch: {len(captured)}")
+    kinds = [r.accepted_by_kind for r in captured]
+    for i, r in enumerate(captured):
+        u, u_fresh = check_carried(r.chain, model.energy_setup,
+                                   model.energy_model, f"{name} scene {i}")
+        print(f"  scene {i}: {r.supersteps} supersteps, "
+              f"{int(r.chain.state.n_points)} points at the end; accepted by"
+              f" kind (rejected, birth, death, move, split, merge) "
+              f"{r.accepted_by_kind}; carried energy {u:.4f} vs rebuilt "
+              f"{u_fresh:.4f}", flush=True)
+        if r.supersteps != 341:
+            raise AssertionError(f"{name} scene {i}: {r.supersteps} "
+                                 "supersteps")
+    sec = model.seconds
+    print(f"  CLI -c {name} (exact, batched, split/merge, trained): "
+          f"{t_cli:.3f} s; chains {sec['chain']:.3f} s; eval "
+          f"{sec['eval']:.3f} s; {ap_line(model, aps)}", flush=True)
+    # phase 3's scene, in memory, one segment with each new move set
+    opts = mpp_model.chain_options(inference.config)
+    opts["stopping"] = None
+    for label, moves in (("split/merge", dict(split_merge=True)),
+                         ("move switch", dict(move_switch=True))):
+        r = run_exact_scene(data, inference.setup, inference.comb,
+                            inference.params, seed=0, max_segments=1,
+                            device=device, **dict(opts, **moves))
+        u, u_fresh = check_carried(r.chain, inference.setup, inference.comb,
+                                   label)
+        kinds.append(r.accepted_by_kind)
+        print(f"  {label} in memory: {r.supersteps} supersteps in "
+              f"{r.seconds['chain']:.3f} s "
+              f"({1e3 * r.seconds['chain'] / r.supersteps:.3f} "
+              f"ms/superstep), {int(r.chain.state.n_points)} points; "
+              f"accepted by kind {r.accepted_by_kind}; carried energy "
+              f"{u:.4f} vs rebuilt {u_fresh:.4f}", flush=True)
+    total = np.sum(kinds, axis=0)
+    if total[4] <= 0 or total[5] <= 0 or kinds[-1][4] or kinds[-1][5]:
+        raise AssertionError(f"accepted splits and merges: {kinds}")
+    probes = {label: superstep_probe(
+        inference.setup, inference.comb, inference.config.get(
+            "capacity", 256), data, moves, device)
+        for label, moves in (("default", {}),
+                             ("split_merge", dict(split_merge=True)),
+                             ("move_switch", dict(move_switch=True)))}
+    base_l = max(1, probes["default"]["launches"])
+    print("  one superstep of phase 3's scene alone: " + "; ".join(
+        f"{k} {v['launches']} launches ({v['launches'] / base_l:.3f}x), "
+        f"{v['device_ms']:.3f} device ms" for k, v in probes.items()),
+        flush=True)
+
+
 def lane_phase(inference, data, seed: int) -> None:
     """Phase 4, second part: the scene as B = 1 and B = 2 lanes of one
     program, one segment each."""
@@ -889,14 +1194,9 @@ def run(args, device: str = "cuda:0") -> int:
             synthetic_scene,
         )
         from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
-        from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
-            build_cache,
-            energy_from_cache,
-        )
         from mpp_cnn_rs_object_detection_torch.mpp.scene import (
             scene_shape_bucket,
         )
-        from mpp_cnn_rs_object_detection_torch.mpp.state import expand_lanes
         from mpp_cnn_rs_object_detection_torch.ops import (
             detection_kernel as dk,
         )
@@ -980,23 +1280,9 @@ def run(args, device: str = "cuda:0") -> int:
     bucket = scene_shape_bucket(HEIGHT, WIDTH)
     assert tuple(chain.maps.position.shape) == bucket, bucket
     assert np.isfinite(energy)
-    # the chain's functions take lanes: the kept lane as a lane of one
-    state1, maps1 = expand_lanes(chain.state, 1), expand_lanes(chain.maps, 1)
-    fresh = build_cache(state1, maps1, setup.spec)
-    alive = chain.state.alive
-    pair = alive[:, None] & alive[None, :]
-    for f in ("dist", "overlap", "align"):
-        a, b = getattr(chain.cache, f)[pair], getattr(fresh, f)[0][pair]
-        diff = float((a - b).abs().max()) if a.numel() else 0.0
-        if diff > CACHE_TOL * max(1.0, float(b.abs().max()) if b.numel()
-                                  else 1.0):
-            raise AssertionError(f"carried cache {f} off by {diff}")
-    u_fresh = float(energy_from_cache(state1, maps1, setup.spec, comb,
-                                      fresh)[0])
+    _, u_fresh = check_carried(chain, setup, comb, "in-memory chain")
     print(f"  carried energy {energy:.4f} vs rebuilt {u_fresh:.4f}",
           flush=True)
-    if abs(u_fresh - energy) > 1e-3 * max(1.0, abs(u_fresh)):
-        raise AssertionError("carried energy disagrees with a rebuild")
     lane_phase(inference, data, args.seed)
     phase("4 chain", t0)
 
@@ -1029,6 +1315,13 @@ def run(args, device: str = "cuda:0") -> int:
         t0 = time.perf_counter()
         manual_phase(root, config, device)
         phase(f"10 CLI infereval -c {MANUAL_CONFIG} (manual mode)", t0)
+        t0 = time.perf_counter()
+        tiled_phase(root, config, device)
+        phase(f"11 CLI infereval -c {TILED_CONFIG} (tiled, sequential)", t0)
+        t0 = time.perf_counter()
+        split_merge_phase(root, config, device, inference, data)
+        phase(f"12 CLI infereval -c {SPLIT_MERGE_CONFIG} (split/merge), "
+              "move switch", t0)
     finally:
         shutil.rmtree(root)
 
@@ -1039,8 +1332,8 @@ def run(args, device: str = "cuda:0") -> int:
           f"{bound:.4f} ms (bytes); {100 * bound / k_ms:.1f} % of the bound",
           flush=True)
     print(f"  detection-map launches by path: in memory {launches_cnn}, CLI "
-          f"infereval {launches}, CLI train {launches_train}; phases 7, 8 "
-          f"and 10 reuse the CNN results", flush=True)
+          f"infereval {launches}, CLI train {launches_train}; phases 7, 8, "
+          f"10, 11 and 12 reuse the CNN results", flush=True)
     kernels = [{
         "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
         "replaces": dk.KERNEL.replaces,

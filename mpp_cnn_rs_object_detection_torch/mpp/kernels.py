@@ -368,7 +368,10 @@ def draw_variates(gen: torch.Generator, state: PointsState, kd: KernelData
     hw = torch.tensor([ln.h, ln.w], device=dev)
     pixel_u = torch.minimum((u[..., 1:3] * hw).long(), hw - 1)
     marks_u = ln.vmin + u[..., 3:6] * (ln.vmax - ln.vmin)
-    idx = torch.searchsorted(kd.birth_cdf, u[..., 6].contiguous())
+    cdf = kd.birth_cdf
+    if cdf.stride(0) == 0:  # lanes that share one image's maps
+        cdf = cdf[0]
+    idx = torch.searchsorted(cdf, u[..., 6].contiguous())
     idx = torch.clamp(idx, 0, ln.h * ln.w - 1)
     pixel_d = torch.stack([idx // ln.w, idx % ln.w], dim=-1)
     cls_d = _categorical(ln.mark_rows(kd, pixel_d[..., 0], pixel_d[..., 1]),

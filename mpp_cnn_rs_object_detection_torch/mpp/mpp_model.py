@@ -1,7 +1,6 @@
-"""The MPP facade: image -> CNN maps -> exact chain -> scores -> DOTA.
+"""The MPP facade: image -> CNN maps -> chains -> scores -> DOTA.
 
-Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/mpp_model.py`` on its
-exact-scene path:
+Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/mpp_model.py``:
 
   - ``MPPModel(config, load=False, phase="train")`` calibrates the energy
     setup on object-biased crops of the train subset, and ``train()``
@@ -12,22 +11,24 @@ exact-scene path:
     calibration from the model store (a ``manual`` config without them
     calibrates and builds its combiner); ``infer(subset)`` runs the CNN
     inference the dataset lacks (``ensure_cnn_inference``), assembles each
-    image's maps from the result pickles, runs the exact chains -- all
-    pending scenes as one batched program with ``batch_scenes``, else one
-    scene at a time (loaded, run, exported and freed per turn), with the
-    segment checkpoint, the config's stopping block, restarts and polish --
-    and exports every scored point of the final configurations -- scores
-    divided by ``max_score``, no NMS, and the default-off refine, score
-    blend and backfill -- to ``NNNN_results.pkl`` and the DOTA OBB
-    translations (plain, and ``-SV`` with large vehicles difficult);
-    ``eval()`` computes AP at each IoU threshold;
+    image's maps from the result pickles, and runs the config's
+    ``scene_mode``: ``"tiled"`` (the default) runs each scene's tiles as
+    the lanes of one sequential (or cell-parallel) chain, merges and
+    rescores them; ``"exact"`` runs whole-scene cell-parallel chains --
+    all pending scenes as one batched program with ``batch_scenes``, else
+    one scene at a time -- with the config's stopping block and restarts.
+    Either way one scene's maps are in memory at a time unless batched,
+    the chains checkpoint per segment, and every scored point of the
+    final configurations is exported -- scores divided by ``max_score``,
+    and the default-off polish, refine, score blend and backfill -- to
+    ``NNNN_results.pkl`` and the DOTA OBB translations (plain, and ``-SV``
+    with large vehicles difficult); ``eval()`` computes AP at each IoU
+    threshold;
   - ``SceneInference`` runs the same models on in-memory images.
 
-Not ported: the tiled scene mode (``ROADMAP.md`` item 10), the
-superstep's split/merge and move switch (item 11), the meshes (item 15),
-and the detection/GT overlay PNGs and the energy attribution figure (item
-16); a config that turns one of the first three on raises
-``NotImplementedError``.
+Not ported: the meshes (``ROADMAP.md`` item 15), which raise
+``NotImplementedError``, and the detection/GT overlay PNGs and the energy
+attribution figure (item 16).
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.scene import (
     SceneResult,
     run_exact_scene,
     run_exact_scenes_batched,
+    run_tiled_scene,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
     stopping_from_config,
@@ -108,9 +110,8 @@ MODELS_ROOT = os.path.join(REPO_ROOT, "artifacts", "models_storage")
 CONFIG_DIR = os.path.join(REPO_ROOT, "model_configs", "mpp")
 # config switches of the JAX MPPModel.infer that the port does not have,
 # with the value that leaves them off and the ROADMAP.md item that ports them
-_INFERENCE_OFF = {"scene_mesh": (False, 15), "batch_mesh": (False, 15)}
-_RJMCMC_OFF = {"superstep_split_merge": (False, 11),
-               "superstep_move_switch": (False, 11)}
+_INFERENCE_OFF = {"scene_mesh": (False, 15), "batch_mesh": (False, 15),
+                  "tile_mesh": (False, 15)}
 TRAIN_MODES = ["manual", "integral_criterion", "ordering_criterion"]
 
 
@@ -145,7 +146,7 @@ def load_energy_model(config: Dict, mpp_dir: str, device
 
 
 class SceneInference:
-    """The exact-scene MPP detector for one configuration."""
+    """The MPP detector of one configuration, on in-memory images."""
 
     def __init__(self, config: Dict, pos_models: Sequence[PosNetModel],
                  shape_model: ShapeNetModel, setup: EnergySetup,
@@ -194,19 +195,27 @@ class SceneInference:
 
     def run_scenes(self, datas: List[ImageWMaps], seeds: Sequence[int],
                    max_segments: Optional[int] = None) -> List[SceneResult]:
-        """The scenes' chains as one batch, or one scene at a time when the
-        config asks for restarts (as ``MPPModel.infer`` runs them)."""
+        """The scenes' exact chains as one batch, or one scene at a time
+        when the config asks for restarts or the tiled mode (as
+        ``MPPModel.infer`` runs them)."""
         check_inference_config(self.config)
-        opts = dict(max_segments=max_segments, device=self.device,
-                    **chain_options(self.config))
-        restarts = int(self.config["inference"].get("restarts", 1))
+        inf = self.config["inference"]
+        restarts = int(inf.get("restarts", 1))
+        if inf.get("scene_mode", "tiled") != "exact":
+            return [run_tiled_scene(
+                d, self.setup, self.comb, self.params, seed=s,
+                max_segments=max_segments, device=self.device,
+                **tiled_options(self.config)) for d, s in zip(datas, seeds)]
         if restarts > 1:
-            return [run_exact_scene(d, self.setup, self.comb, self.params,
-                                    seed=s, restarts=restarts, **opts)
-                    for d, s in zip(datas, seeds)]
+            return [run_exact_scene(
+                d, self.setup, self.comb, self.params, seed=s,
+                restarts=restarts, max_segments=max_segments,
+                device=self.device, **chain_options(self.config))
+                for d, s in zip(datas, seeds)]
         return run_exact_scenes_batched(
             datas, self.setup, self.comb, self.params, seeds=list(seeds),
-            **opts)
+            max_segments=max_segments, device=self.device,
+            **chain_options(self.config))
 
 
 def chain_options(config: Dict) -> Dict:
@@ -216,24 +225,37 @@ def chain_options(config: Dict) -> Dict:
     return dict(capacity=config.get("capacity", 256),
                 segment_size=int(inf.get("segment_size", 4096)),
                 data_moves=bool(rj.get("superstep_data_moves", True)),
+                move_switch=bool(rj.get("superstep_move_switch", False)),
+                split_merge=bool(rj.get("superstep_split_merge", False)),
                 stopping=stopping_from_config(rj.get("stopping")),
                 polish_steps=int(inf.get("polish_steps", 0)))
+
+
+def tiled_options(config: Dict) -> Dict:
+    """The tiled mode's options from an MPP config: the tile size, the
+    sampler, the sequential mixture's split/merge pair, and the chain's
+    (``chain_options`` but the stopping block, which only exact segments
+    evaluate; a configured one is ignored with a warning)."""
+    inf = config["inference"]
+    opts = chain_options(config)
+    if opts.pop("stopping") is not None:
+        logging.warning("stopping conditions are evaluated on exact-scene "
+                        "segments only; ignored in tiled mode")
+    return dict(opts, patch_size=config["dataset"].get("patch_size", 256),
+                sampler=inf.get("sampler", "sequential"),
+                use_split_merge=bool(inf["rjmcmc_params"].get(
+                    "use_split_merge", False)))
 
 
 def check_inference_config(config: Dict) -> None:
     """Raise for a config that turns on a part of the JAX inference path
     the port does not have."""
     inf = config["inference"]
-    if inf.get("scene_mode", "tiled") != "exact":
-        raise NotImplementedError("only the exact scene mode is ported; the "
-                                  "tiled mode is ROADMAP.md item 10")
-    rj = inf["rjmcmc_params"]
-    for block, switches in ((inf, _INFERENCE_OFF), (rj, _RJMCMC_OFF)):
-        for key, (off, item) in switches.items():
-            if block.get(key, off) != off:
-                raise NotImplementedError(
-                    f"inference option {key}={block[key]!r} is not ported "
-                    f"(ROADMAP.md item {item})")
+    for key, (off, item) in _INFERENCE_OFF.items():
+        if inf.get(key, off) != off:
+            raise NotImplementedError(
+                f"inference option {key}={inf[key]!r} is not ported "
+                f"(ROADMAP.md item {item})")
 
 
 def _host(x) -> np.ndarray:
@@ -565,7 +587,9 @@ class MPPModel(BaseModel):
                                   postfix="-SV")]
         inf = self.config["inference"]
         params = rjmcmc_params_from_config(self.config)
-        options = chain_options(self.config)
+        exact = inf.get("scene_mode", "tiled") == "exact"
+        options = (chain_options(self.config) if exact
+                   else tiled_options(self.config))
         restarts = int(inf.get("restarts", 1))
 
         ids = self._image_ids(subset)
@@ -573,7 +597,8 @@ class MPPModel(BaseModel):
             os.path.join(results_dir, f"{pid:04}_results.pkl"))]
         self.results = {}
         batch: Dict[int, Tuple[ImageWMaps, SceneResult]] = {}
-        if inf.get("batch_scenes") and restarts == 1 and len(pending) > 1:
+        if (inf.get("batch_scenes") and exact and restarts == 1
+                and len(pending) > 1):
             # every pending scene at one shared bucket and capacity
             t_stage = time.perf_counter()
             datas = [self._load_image(pid, subset) for pid in pending]
@@ -623,18 +648,29 @@ class MPPModel(BaseModel):
                      translators) -> None:
         """One pending scene: its chain (unless the batch ran it), its
         export, and the host-side record in ``results``. The scene's maps
-        and chain live in this call's frame only."""
+        and chain live in this call's frame only. The chain checkpoint is
+        ``NNNN_chains.ck.npz`` in exact mode and ``NNNN_tiles.ck.npz`` in
+        tiled mode."""
         if loaded is None:
             t_stage = time.perf_counter()
             data = self._load_image(patch_id, subset)
             self.seconds["load"] += time.perf_counter() - t_stage
             t_stage = time.perf_counter()
-            result = run_exact_scene(
-                data, self.energy_setup, self.energy_model, params,
-                seed=patch_id, device=self.device, restarts=restarts,
-                checkpoint_path=os.path.join(results_dir,
-                                             f"{patch_id:04}_chains.ck.npz"),
-                **options)
+            if self.config["inference"].get("scene_mode",
+                                            "tiled") != "exact":
+                result = run_tiled_scene(
+                    data, self.energy_setup, self.energy_model, params,
+                    seed=patch_id, device=self.device,
+                    checkpoint_path=os.path.join(
+                        results_dir, f"{patch_id:04}_tiles.ck.npz"),
+                    **options)
+            else:
+                result = run_exact_scene(
+                    data, self.energy_setup, self.energy_model, params,
+                    seed=patch_id, device=self.device, restarts=restarts,
+                    checkpoint_path=os.path.join(
+                        results_dir, f"{patch_id:04}_chains.ck.npz"),
+                    **options)
             self.seconds["chain"] += time.perf_counter() - t_stage
         else:
             data, result = loaded

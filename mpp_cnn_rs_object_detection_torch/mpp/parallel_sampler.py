@@ -1,7 +1,8 @@
 """Cell-parallel RJMCMC: many non-interacting MH moves per superstep.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/parallel_sampler.py``
-(default flags: data moves on, split/merge and the switched move type off).
+(data moves on by default; the split/merge pair and the switched move type
+as options).
 Each superstep jitters a grid of CELL x CELL cells spaced 2*CELL apart; every
 active cell proposes one birth / death / translation / mark transform
 confined to the cell, all proposals are scored exactly against the same base
@@ -29,8 +30,9 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,6 +48,8 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
 from mpp_cnn_rs_object_detection_torch.mpp.kernels import (
     EPS,
     MAX_DELTA,
+    MERGE_RADIUS,
+    SPLIT_SHAPE_SIGMA,
     WINDOW,
     KernelData,
     _categorical,
@@ -71,6 +75,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.state import (
     lane,
 )
 from mpp_cnn_rs_object_detection_torch.ops.geometry import (
+    convex_quad_intersection_area,
     marks_to_poly,
     rect_area,
 )
@@ -83,6 +88,8 @@ CELL = 32
 # moves take 2/3 (the reference mixture's 1:2 gaussian:data weighting)
 P_BIRTH, P_DEATH, P_TRL, P_TRF = 0.25, 0.25, 0.25, 0.25
 P_DATA_SUB = 2.0 / 3.0
+# with the split/merge pair: each base family, and split and merge
+P_SM_BASE, P_SM = 0.2, 0.1
 
 
 @dataclass
@@ -166,12 +173,18 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _cell_proposal(gens, state: PointsState, kd: KernelData,
                    view: MapView, ix: _Index, h: int, w: int,
                    y0: torch.Tensor, x0: torch.Tensor, free_slot: torch.Tensor,
-                   free_ok: torch.Tensor, data_moves: bool = True):
+                   free_ok: torch.Tensor, data_moves: bool = True,
+                   split_merge: bool = False):
     """One MH proposal per cell [y0, y0+CELL) x [x0, x0+CELL), batched over
     the B lanes (lane b draws from ``gens[b]``) and their m cells (y0, x0,
     free_slot, free_ok: (B, m)). Returns (kind, slot, xy, marks, log_fwd,
-    log_back), each (B, m, ...), with kinds 0 = no-op, 1 = birth, 2 =
-    death, 3 = single-slot move."""
+    log_back, slot2, xy2, marks2), each (B, m, ...), with kinds 0 = no-op,
+    1 = birth, 2 = death, 3 = single-slot move, and with ``split_merge``
+    4 = split (``slot`` moves, ``slot2`` is born) and 5 = merge (``slot``
+    moves, ``slot2`` dies; ``slot2`` is -1 for the other kinds). Without
+    ``split_merge`` the last three are None, and the draws are those of a
+    chain that never had the pair: its variates are drawn after all
+    others, and only when it is on."""
     b, m = y0.shape
     dev = state.xy.device
     k = state.capacity
@@ -199,9 +212,13 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
     lam_cell = kd.intensity[:, None] * area / float(h * w)
 
     move_t = _rand(gens, m, device=dev)
-    is_birth = move_t < P_BIRTH
-    is_death = (move_t >= P_BIRTH) & (move_t < 2 * P_BIRTH)
-    is_trl = (move_t >= 2 * P_BIRTH) & (move_t < 3 * P_BIRTH)
+    # with the split/merge pair the four base families take 0.2 each and
+    # split and merge 0.1 each; only ratios of paired families enter the
+    # Green ratios, so the base families' terms are unchanged
+    pb = P_SM_BASE if split_merge else P_BIRTH
+    is_birth = move_t < pb
+    is_death = (move_t >= pb) & (move_t < 2 * pb)
+    is_trl = (move_t >= 2 * pb) & (move_t < 3 * pb)
 
     # ---- birth: position ~ cell window of the detection density
     win = _windows(view.cell_density, by_cell[:1], y0 - view.row0_cd,
@@ -344,7 +361,261 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
                            torch.where(is_death, death_back,
                                        torch.where(is_trl, trl_back,
                                                    trf_back)))
-    return kind, slot, xy, marks, log_fwd, log_back
+    if not split_merge:
+        return kind, slot, xy, marks, log_fwd, log_back, None, None, None
+
+    # ---- split / merge, confined to the cell: the sequential kernels'
+    # displacement density with the cell's counts for the global ones,
+    # both children (and the merged point) clipped into the cell
+    u_rad = _rand(gens, m, device=dev)
+    u_ang = _rand(gens, m, device=dev)
+    z_shape = _randn(gens, m, 3, device=dev)
+    nb_noise = _rand(gens, m, k, device=dev)
+
+    def clip_marks(mk):
+        wrapped = ((mk - vmin_l) % (vmax_l - vmin_l)) + vmin_l
+        return torch.where(cyc_l, wrapped,
+                           torch.minimum(torch.maximum(mk, vmin_l), vmax_l))
+
+    sm_sigmas = SPLIT_SHAPE_SIGMA * (vmax_l - vmin_l)
+
+    def split_logpdf(shape_delta):
+        return (-math.log(math.pi * MERGE_RADIUS ** 2)
+                + _normal_logpdf(shape_delta, sm_sigmas).sum(dim=-1))
+
+    log_sm = math.log(P_SM)
+    rho = MERGE_RADIUS * torch.sqrt(u_rad)
+    theta = u_ang * float(np.float32(np.pi / 2))
+    pos_delta = rho[..., None] * torch.stack(
+        [torch.cos(theta), torch.sin(theta)], dim=-1)
+    shape_delta = sm_sigmas * z_shape
+    sp_xy_a = torch.minimum(torch.maximum(sxy - pos_delta, lo), hi)
+    sp_xy_b = torch.minimum(torch.maximum(sxy + pos_delta, lo), hi)
+    sp_fwd = (log_sm - _log(n_cell) + split_logpdf(shape_delta)
+              - _log(lam_cell))
+    # the reverse merge picks either child, then its sibling among the
+    # cell's points within the merge radius (the parent left out)
+    others = in_cell & (torch.arange(k, device=dev)
+                        != safe_slot[..., None])
+    nn_a = (others & (torch.linalg.vector_norm(
+        state.xy[:, None] - sp_xy_a[..., None, :], dim=-1)
+        <= MERGE_RADIUS)).sum(dim=-1) + 1
+    nn_b = (others & (torch.linalg.vector_norm(
+        state.xy[:, None] - sp_xy_b[..., None, :], dim=-1)
+        <= MERGE_RADIUS)).sum(dim=-1) + 1
+    sp_back = log_sm + _log((1.0 / (n_cell + 1.0))
+                            * (1.0 / nn_a + 1.0 / nn_b))
+    split_ok = pick_ok & free_ok & cell_ok
+
+    nb_mask = others & (torch.linalg.vector_norm(
+        state.xy[:, None] - sxy[..., None, :], dim=-1) <= MERGE_RADIUS)
+    n_nb = nb_mask.sum(dim=-1)
+    nb_slot = torch.where(n_nb > 0, torch.argmax(
+        torch.where(nb_mask, nb_noise, -1.0), dim=-1), safe_slot)
+    nxy, nmk = _rows(state.xy, nb_slot), _rows(state.marks, nb_slot)
+    mg_xy = torch.minimum(torch.maximum((sxy + nxy) / 2.0, lo), hi)
+    mg_fwd = log_sm - _log(n_cell) - _log(n_nb.float())
+    mg_back = (log_sm - _log(n_cell - 1.0) + split_logpdf((smk - nmk) / 2.0)
+               - _log(lam_cell))
+    merge_ok = pick_ok & (n_nb > 0) & (n_cell >= 2)
+
+    is_split = (move_t >= 4 * pb) & (move_t < 4 * pb + P_SM)
+    is_merge = move_t >= 4 * pb + P_SM
+    sm = is_split | is_merge
+    kind = torch.where(is_split, torch.where(split_ok, 4, zero),
+                       torch.where(is_merge, torch.where(merge_ok, 5, zero),
+                                   kind))
+    slot = torch.where(sm, safe_slot, slot)
+    xy = torch.where(is_split[..., None], sp_xy_a,
+                     torch.where(is_merge[..., None], mg_xy, xy))
+    marks = torch.where(is_split[..., None], clip_marks(smk - shape_delta),
+                        torch.where(is_merge[..., None],
+                                    clip_marks((smk + nmk) / 2.0), marks))
+    log_fwd = torch.where(is_split, sp_fwd,
+                          torch.where(is_merge, mg_fwd, log_fwd))
+    log_back = torch.where(is_split, sp_back,
+                           torch.where(is_merge, mg_back, log_back))
+    slot2 = torch.where(is_split, free_slot,
+                        torch.where(is_merge, nb_slot, zero - 1))
+    xy2 = torch.where(is_split[..., None], sp_xy_b, 0.0)
+    marks2 = torch.where(is_split[..., None], clip_marks(smk + shape_delta),
+                         0.0)
+    return kind, slot, xy, marks, log_fwd, log_back, slot2, xy2, marks2
+
+
+def _type_probs(data_moves: bool) -> np.ndarray:
+    """The switched superstep's move types: birth, death, gaussian and
+    data translation, gaussian and data transform, with the per-cell
+    draws' marginals."""
+    if data_moves:
+        return np.array([P_BIRTH, P_DEATH, P_TRL * (1 - P_DATA_SUB),
+                         P_TRL * P_DATA_SUB, P_TRF * (1 - P_DATA_SUB),
+                         P_TRF * P_DATA_SUB])
+    return np.array([P_BIRTH, P_DEATH, P_TRL, 0.0, P_TRF, 0.0])
+
+
+def _cell_proposal_switched(gens, types, state: PointsState, kd: KernelData,
+                            view: MapView, ix: _Index, h: int, w: int,
+                            y0: torch.Tensor, x0: torch.Tensor,
+                            free_slot: torch.Tensor, free_ok: torch.Tensor):
+    """One MH proposal per cell with ONE move type per superstep and lane:
+    ``types`` holds lane b's type (an index of ``_type_probs``), drawn on
+    the host. Each lane's superstep is then one of six composite kernels
+    (all cells birth, all death, ...), each a product of non-interacting
+    cell kernels in detailed balance with its reverse type; the factor
+    P(type) cancels from the cells' Green ratios. Only the branches of the
+    lanes' types are built (their union over the lanes), which is the
+    point: fewer launches per superstep. Every branch reads one shared set
+    of variates, so lane b draws the same numbers whatever the other
+    lanes' types. Returns the 9 fields of ``_cell_proposal`` (no
+    split/merge: the last three are None)."""
+    b, m = y0.shape
+    dev = state.xy.device
+    k = state.capacity
+    lane, cell, mark3 = ix.lane, ix.cell, ix.mark3
+    vmin_l, vmax_l = kd.map_vmin[:, None, :], kd.map_vmax[:, None, :]
+
+    ylo, xlo = torch.clamp(y0, 0, h), torch.clamp(x0, 0, w)
+    yhi, xhi = torch.clamp(y0 + CELL, 0, h), torch.clamp(x0 + CELL, 0, w)
+    area = torch.clamp((yhi - ylo) * (xhi - xlo), min=0).float()
+    cell_ok = area > 0
+    px_all = state.xy[:, None, :, 0]
+    py_all = state.xy[:, None, :, 1]
+    in_cell = (state.alive[:, None, :]
+               & (px_all >= ylo[..., None]) & (px_all < yhi[..., None])
+               & (py_all >= xlo[..., None]) & (py_all < xhi[..., None]))
+    n_cell = in_cell.sum(dim=-1).float()
+    pick = torch.argmax(torch.where(in_cell, _rand(gens, m, k, device=dev),
+                                    -1.0), dim=-1)
+    pick_ok = n_cell > 0
+    safe_slot = torch.where(pick_ok, pick, 0)
+    lam_cell = kd.intensity[:, None] * area / float(h * w)
+    win = _windows(view.cell_density, (lane[..., None, None],),
+                   y0 - view.row0_cd, x0 + CELL, ix.ar_cell)
+    win_sum = win.sum(dim=(-2, -1))
+    win_prob = win / (win_sum + EPS)[..., None, None]
+    n_classes = view.mark_dists.shape[-1]
+    n_rows_md = view.mark_dists.shape[-3]
+    cur_xy = _rows(state.xy, safe_slot)
+    cur_marks = _rows(state.marks, safe_slot)
+    # the shared variates: at most 9 uniforms, 2 normals and a mark index
+    u = _rand(gens, m, 9, device=dev)
+    z = _randn(gens, m, 2, device=dev)
+    pid = _randint(gens, 0, 3, m, device=dev)
+    zero = torch.zeros_like(safe_slot)
+    log_c3 = 3 * math.log(float(n_classes))
+
+    def point_pixel():
+        dyi = torch.clamp(cur_xy[..., 0].long(), 0, h - 1)
+        dxi = torch.clamp(cur_xy[..., 1].long(), 0, w - 1)
+        return dyi, dxi, torch.clamp(dyi - view.row0_md, 0, n_rows_md - 1)
+
+    def birth():
+        flat = win_prob.reshape(b, m, -1)
+        cell_idx = _categorical(flat, 1.0 - u[..., 0])
+        py = (y0 + cell_idx // CELL).float() + u[..., 1]
+        px = (x0 + cell_idx % CELL).float() + u[..., 2]
+        byi = torch.clamp(py.long(), 0, h - 1)
+        bxi = torch.clamp(px.long(), 0, w - 1)
+        byi_l = torch.clamp(byi - view.row0_md, 0, n_rows_md - 1)
+        rows = view.mark_dists[lane[..., None], mark3, byi_l[..., None],
+                               bxi[..., None]]
+        cls = _categorical(rows, 1.0 - u[..., 6:9])
+        steps_b = (vmax_l - vmin_l) / n_classes
+        marks = vmin_l + cls.float() * steps_b + u[..., 3:6] * steps_b
+        log_q = (_log(_take(flat, cell_idx)) + _log(area)
+                 + _log(_take(rows, cls)).sum(dim=-1) + log_c3)
+        ok = cell_ok & free_ok & (win_sum > 1e-12)
+        return (torch.where(ok, 1, zero), free_slot,
+                torch.stack([py, px], dim=-1), marks,
+                math.log(P_BIRTH) + log_q - _log(lam_cell),
+                math.log(P_DEATH) - _log(n_cell + 1.0))
+
+    def death():
+        dyi, dxi, dyi_l = point_pixel()
+        drows = view.mark_dists[lane[..., None], mark3, dyi_l[..., None],
+                                dxi[..., None]]
+        dcls = _value_to_class(vmin_l, vmax_l, kd.map_cyclic[:, None, :],
+                               n_classes, cur_marks)
+        dwin_y = torch.clamp(dyi - y0, 0, CELL - 1)
+        dwin_x = torch.clamp(dxi - x0, 0, CELL - 1)
+        log_q = (_log(win_prob[lane, cell, dwin_y, dwin_x]) + _log(area)
+                 + _log(_take(drows, dcls)).sum(dim=-1) + log_c3)
+        return (torch.where(pick_ok, 2, zero), safe_slot, cur_xy, cur_marks,
+                math.log(P_DEATH) - _log(n_cell),
+                math.log(P_BIRTH) + log_q - _log(lam_cell))
+
+    def gauss_trl():
+        sigma_trl = kd.sigma_trl[:, None, None]
+        delta = sigma_trl * z
+        lo = torch.stack([ylo, xlo], dim=-1).float()
+        hi = torch.stack([yhi - 1, xhi - 1], dim=-1).float()
+        xy = torch.minimum(torch.maximum(cur_xy + delta, lo), hi)
+        logp = (_normal_logpdf(delta, sigma_trl).sum(dim=-1)
+                - _log(n_cell))
+        return (torch.where(pick_ok, 3, zero), safe_slot, xy, cur_marks,
+                logp, logp)
+
+    def data_trl():
+        dyi, dxi, _ = point_pixel()
+        dwin_y = torch.clamp(dyi - y0, 0, CELL - 1)
+        dwin_x = torch.clamp(dxi - x0, 0, CELL - 1)
+        win_pad = F.pad(win, (MAX_DELTA,) * 4)
+        by_cell = (lane[..., None, None], cell[..., None, None])
+        wloc = _windows(win_pad, by_cell, dwin_y, dwin_x, ix.ar_window)
+        wsum = wloc.sum(dim=(-2, -1))
+        wprob = (wloc / (wsum + EPS)[..., None, None]).reshape(b, m, -1)
+        widx = _categorical(wprob, 1.0 - u[..., 0])
+        new_wy = torch.clamp(dwin_y + widx // WINDOW - MAX_DELTA, 0,
+                             CELL - 1)
+        new_wx = torch.clamp(dwin_x + widx % WINDOW - MAX_DELTA, 0,
+                             CELL - 1)
+        xy = torch.stack([(y0 + new_wy).float() + u[..., 1],
+                          (x0 + new_wx).float() + u[..., 2]], dim=-1)
+        wloc_b = _windows(win_pad, by_cell, new_wy, new_wx, ix.ar_window)
+        wprob_b = wloc_b / (wloc_b.sum(dim=(-2, -1)) + EPS)[..., None, None]
+        back = (_log(wprob_b[lane, cell, dwin_y - new_wy + MAX_DELTA,
+                             dwin_x - new_wx + MAX_DELTA]) - _log(n_cell))
+        return (torch.where(pick_ok & (wsum > 1e-12), 3, zero), safe_slot,
+                xy, cur_marks, _log(_take(wprob, widx)) - _log(n_cell), back)
+
+    def gauss_trf():
+        sigma = kd.sigma_trf[lane, pid]
+        mdelta = sigma * z[..., 0]
+        old = _take(cur_marks, pid)
+        vmin, vmax = kd.map_vmin[lane, pid], kd.map_vmax[lane, pid]
+        new_val = torch.where(
+            kd.map_cyclic[lane, pid], ((old + mdelta) % (vmax - vmin)) + vmin,
+            torch.minimum(torch.maximum(old + mdelta, vmin), vmax))
+        logp = _normal_logpdf(mdelta, sigma) - _log(n_cell)
+        return (torch.where(pick_ok, 3, zero), safe_slot, cur_xy,
+                cur_marks.scatter(-1, pid[..., None], new_val[..., None]),
+                logp, logp)
+
+    def data_trf():
+        _, dxi, dyi_l = point_pixel()
+        row = view.mark_dists[lane, pid, dyi_l, dxi]  # (B, m, C)
+        new_cls = _categorical(row, 1.0 - u[..., 0])
+        vmin, vmax = kd.map_vmin[lane, pid], kd.map_vmax[lane, pid]
+        new_val = (_class_to_value(vmin, vmax, n_classes, new_cls)
+                   + u[..., 1] * (vmax - vmin) / n_classes)
+        old_cls = _value_to_class(vmin, vmax, kd.map_cyclic[lane, pid],
+                                  n_classes, _take(cur_marks, pid))
+        return (torch.where(pick_ok, 3, zero), safe_slot, cur_xy,
+                cur_marks.scatter(-1, pid[..., None], new_val[..., None]),
+                _log(_take(row, new_cls)) - _log(n_cell),
+                _log(_take(row, old_cls)) - _log(n_cell))
+
+    branches = (birth, death, gauss_trl, data_trl, gauss_trf, data_trf)
+    built = {t: branches[t]() for t in sorted(set(types))}
+    if len(built) == 1:
+        out = next(iter(built.values()))
+    else:  # each lane's own branch: lane views, one cat per field
+        out = tuple(torch.cat([built[t][f][i:i + 1]
+                               for i, t in enumerate(types)])
+                    for f in range(6))
+    kind = torch.where(cell_ok, out[0], 0)
+    return (kind,) + tuple(out[1:]) + (None, None, None)
 
 
 def _unary_at(maps: EnergyMaps, spec: EnergySpec, xy, marks):
@@ -352,32 +623,54 @@ def _unary_at(maps: EnergyMaps, spec: EnergySpec, xy, marks):
     return unary_terms(maps, xy, marks)
 
 
+def _tops(values, mask, sign: float, n: int):
+    """The n largest entries of each masked row of ``sign * values``
+    (-inf where there are fewer), with the args of all but the last:
+    ``[t1, a1, t2, ..., tn]``."""
+    v = torch.where(mask, sign * values, -torch.inf)
+    out = []
+    for i in range(n):
+        out.append(v.amax(dim=-1))
+        if i < n - 1:
+            a = torch.argmax(v, dim=-1)
+            out.append(a)
+            v = v.scatter(-1, a[..., None], -torch.inf)
+    return out
+
+
+def _column(mask: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
+    """``mask[b, j, at[b, i]]`` for every row j: (B, m, K)."""
+    return torch.gather(mask.transpose(-1, -2), 1,
+                        at[..., None].expand(-1, -1, mask.shape[-1]))
+
+
 def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
                      spec: EnergySpec, comb: EnergyCombiner, kinds, slots,
-                     xys, markss):
+                     xys, markss, slots2=None, xys2=None, markss2=None):
     """Exact dU of m single-slot proposals per lane (birth 1 / death 2 /
     move 3; each (B, m, ...)) against the SAME base state of their lane
     (B, K), in O(m*K): per-row top-2 statistics of the masked overlap/align
     rows give every neighbour's leave-one-out reduced term, into which the
     candidate's fresh pair row is inserted. Returns the (B, m) deltas and
-    the candidates' unary terms ``(pos, mark)``, which the apply caches."""
+    the candidates' unary terms ``(pos, mark)``, which the apply caches.
+
+    With ``slots2`` (the split/merge pair: split 4 moves ``slot`` and
+    births ``slot2``, merge 5 moves ``slot`` and kills ``slot2``) the
+    two-slot form of ``_two_slot_deltas`` runs instead, and the unary terms
+    are ``(pos, mark, pos2, mark2)``."""
+    if slots2 is not None:
+        return _two_slot_deltas(state, cache, maps, spec, comb, kinds, slots,
+                                xys, markss, slots2, xys2, markss2)
     k = state.capacity
     dev = state.xy.device
     alive = state.alive
     ov_mask, al_mask = pair_masks(state, cache.dist, spec)
     idx = torch.arange(k, device=dev)
 
-    def top2s(values, mask, sign):
-        v = torch.where(mask, sign * values, -torch.inf)
-        t1 = v.amax(dim=-1)
-        a1 = torch.argmax(v, dim=-1)
-        v2 = v.scatter(-1, a1[..., None], -torch.inf)
-        return t1, a1, v2.amax(dim=-1)  # sign domain; -inf where none
-
     ov_sign = 1.0
     al_sign = -1.0 if spec.rewarding_align else 1.0
-    ov1, ov_a, ov2 = top2s(cache.overlap, ov_mask, ov_sign)
-    al1, al_a, al2 = top2s(cache.align, al_mask, al_sign)
+    ov1, ov_a, ov2 = _tops(cache.overlap, ov_mask, ov_sign, 2)
+    al1, al_a, al2 = _tops(cache.align, al_mask, al_sign, 2)
     ov_n = ov_mask.sum(dim=-1)
     al_n = al_mask.sum(dim=-1)
     ov_red = torch.where(ov_n > 0, ov_sign * ov1, 0.0)
@@ -401,11 +694,6 @@ def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
     al_new = alive_s_new[..., None] & others & (
         dist_row <= spec.align_max_dist)
 
-    def column(mask):
-        # mask[b, j, s[b, i]] for every row j: (B, m, K)
-        return torch.gather(mask.transpose(-1, -2), 1,
-                            s[..., None].expand(-1, -1, k))
-
     def neighbour_red(t1, a1, t2, n, old_col, new_mask, new_vals, sign):
         ext_wo = torch.where((a1[:, None, :] == s[..., None]) & old_col,
                              t2[:, None, :], t1[:, None, :])
@@ -415,10 +703,10 @@ def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
         n_new = n_wo + new_mask.long()
         return torch.where(n_new > 0, sign * ext_new, 0.0)
 
-    ov_red_new = neighbour_red(ov1, ov_a, ov2, ov_n, column(ov_mask), ov_new,
-                               ov_row, ov_sign)
-    al_red_new = neighbour_red(al1, al_a, al2, al_n, column(al_mask), al_new,
-                               al_row, al_sign)
+    ov_red_new = neighbour_red(ov1, ov_a, ov2, ov_n, _column(ov_mask, s),
+                               ov_new, ov_row, ov_sign)
+    al_red_new = neighbour_red(al1, al_a, al2, al_n, _column(al_mask, s),
+                               al_new, al_row, al_sign)
     b, m = kinds.shape
     vec_new = base_vec[:, None].expand(b, m, -1, -1).clone()
     vec_new[..., ov_col] = ov_red_new
@@ -444,6 +732,128 @@ def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
                            torch.gather(pp_raw, 1, s), 0.0)
     deltas = pp_s_new - pp_s_old + d_others
     return torch.where(kinds == 0, 0.0, deltas), (pos_s, mark_s)
+
+
+def _two_slot_deltas(state: PointsState, cache: EnergyCache,
+                     maps: EnergyMaps, spec: EnergySpec,
+                     comb: EnergyCombiner, kinds, slots, xys, markss,
+                     slots2, xys2, markss2):
+    """Exact dU of proposals touching up to two slots, in O(m*K): removing
+    up to two columns of a neighbour's masked row falls through its top-3
+    statistics, then both candidates' fresh values are inserted, and the
+    candidates' own reduced terms include their mutual pair term (split).
+    Lanes with one slot (``slot2 < 0``, kinds 1-3) get the single-slot
+    delta."""
+    k = state.capacity
+    alive = state.alive
+    ov_mask, al_mask = pair_masks(state, cache.dist, spec)
+    idx = torch.arange(k, device=state.xy.device)
+    ov_sign = 1.0
+    al_sign = -1.0 if spec.rewarding_align else 1.0
+    ov_t = _tops(cache.overlap, ov_mask, ov_sign, 3)
+    al_t = _tops(cache.align, al_mask, al_sign, 3)
+    ov_n, al_n = ov_mask.sum(dim=-1), al_mask.sum(dim=-1)
+    ov_red = torch.where(ov_n > 0, ov_sign * ov_t[0], 0.0)
+    al_red = torch.where(al_n > 0, al_sign * al_t[0], 0.0)
+    base_vec = vec_cols(spec, maps, cache.pos_e, cache.mark_e, ov_red, al_red,
+                        cache.areas, state.marks[..., 1])
+    pp_raw = combine(comb, base_vec)
+    n_data = 2 if spec.shape_mode == "mean" else 4
+    ov_col, al_col = n_data, n_data + 1
+
+    s = torch.clamp(slots, 0, k - 1)
+    has2 = (kinds == 4) | (kinds == 5)
+    s2 = torch.clamp(slots2, 0, k - 1)
+    alive_s_new = kinds != 2
+    alive_s2_new = kinds == 4
+
+    # both candidates' geometry, pair rows and unary terms in one pass
+    b, m = kinds.shape
+    xy_c = torch.cat([xys, xys2], dim=1)
+    mk_c = torch.cat([markss, markss2], dim=1)
+    poly_c = marks_to_poly(xy_c, mk_c[..., 0], mk_c[..., 1], mk_c[..., 2])
+    area_c = rect_area(mk_c[..., 0], mk_c[..., 1])
+    rows_c = pair_rows(xy_c, mk_c, poly_c, area_c, state, cache.polys,
+                       cache.areas, spec)
+    unary_c = _unary_at(maps, spec, xy_c, mk_c)
+    poly_a, poly_b = poly_c[:, :m], poly_c[:, m:]
+    area_s, area_s2 = area_c[:, :m], area_c[:, m:]
+    dist_s, ovr_s, alr_s = (r[:, :m] for r in rows_c)
+    dist_s2, ovr_s2, alr_s2 = (r[:, m:] for r in rows_c)
+    pos_s, pos_s2 = unary_c[0][:, :m], unary_c[0][:, m:]
+    mark_s, mark_s2 = unary_c[1][:, :m], unary_c[1][:, m:]
+    others = (alive[:, None, :] & (idx != s[..., None])
+              & ~(has2[..., None] & (idx == s2[..., None])))
+
+    def new_masks(alive_new, dist):
+        on = alive_new[..., None] & others
+        return (on & (dist <= spec.overlap_max_dist),
+                on & (dist <= spec.align_max_dist))
+
+    ovm_s, alm_s = new_masks(alive_s_new, dist_s)
+    ovm_s2, alm_s2 = new_masks(alive_s2_new, dist_s2)
+
+    def red2(tops, n, mask, new_s, val_s, new_s2, val_s2, sign):
+        t1, a1, t2, a2, t3 = (x[:, None, :] for x in tops)
+        col_s = _column(mask, s)
+        col_s2 = has2[..., None] & _column(mask, s2)
+
+        def removed(a):
+            return (((a == s[..., None]) & col_s)
+                    | ((a == s2[..., None]) & col_s2))
+
+        ext = torch.where(removed(a1), torch.where(removed(a2), t3, t2), t1)
+        ext = torch.maximum(ext, torch.where(new_s, sign * val_s,
+                                             -torch.inf))
+        ext = torch.maximum(ext, torch.where(new_s2, sign * val_s2,
+                                             -torch.inf))
+        n_new = (n[:, None, :] - col_s.long() - col_s2.long()
+                 + new_s.long() + new_s2.long())
+        return torch.where(n_new > 0, sign * ext, 0.0)
+
+    vec_new = base_vec[:, None].expand(b, m, -1, -1).clone()
+    vec_new[..., ov_col] = red2(ov_t, ov_n, ov_mask, ovm_s, ovr_s, ovm_s2,
+                                ovr_s2, ov_sign)
+    vec_new[..., al_col] = red2(al_t, al_n, al_mask, alm_s, alr_s, alm_s2,
+                                alr_s2, al_sign)
+    d_others = torch.where(others, combine(comb, vec_new)
+                           - pp_raw[:, None, :], 0.0).sum(dim=-1)
+
+    # the children's mutual pair term (split only)
+    d_ab = torch.linalg.vector_norm(xys - xys2, dim=-1)
+    ov_ab = (convex_quad_intersection_area(poly_a, poly_b)
+             / (torch.minimum(area_s, area_s2) + 1e-6))
+    al_ab = (1.0 - torch.abs(torch.cos(markss[..., 2] - markss2[..., 2]))
+             - float(spec.rewarding_align))
+    mut = alive_s_new & alive_s2_new
+    mut_ov = mut & (d_ab <= spec.overlap_max_dist)
+    mut_al = mut & (d_ab <= spec.align_max_dist)
+
+    def cand_red(new_mask, vals, mut_ok, mut_val, sign):
+        ext = torch.where(new_mask, sign * vals, -torch.inf).amax(dim=-1)
+        ext = torch.maximum(ext, torch.where(mut_ok, sign * mut_val,
+                                             -torch.inf))
+        n_c = new_mask.sum(dim=-1) + mut_ok.long()
+        return torch.where(n_c > 0, sign * ext, 0.0)
+
+    def cand_energy(pos, mark, mk, area, ovm, ovr, alm, alr, alive_new):
+        vec = vec_cols(spec, maps, pos, mark,
+                       cand_red(ovm, ovr, mut_ov, ov_ab, ov_sign),
+                       cand_red(alm, alr, mut_al, al_ab, al_sign), area,
+                       mk[..., 1])
+        return torch.where(alive_new, combine(comb, vec), 0.0)
+
+    pp_s = cand_energy(pos_s, mark_s, markss, area_s, ovm_s, ovr_s, alm_s,
+                       alr_s, alive_s_new)
+    pp_s2 = cand_energy(pos_s2, mark_s2, markss2, area_s2, ovm_s2, ovr_s2,
+                        alm_s2, alr_s2, alive_s2_new)
+    pp_old = (torch.where(torch.gather(alive, 1, s),
+                          torch.gather(pp_raw, 1, s), 0.0)
+              + torch.where(has2 & torch.gather(alive, 1, s2),
+                            torch.gather(pp_raw, 1, s2), 0.0))
+    deltas = pp_s + pp_s2 - pp_old + d_others
+    return (torch.where(kinds == 0, 0.0, deltas),
+            (pos_s, mark_s, pos_s2, mark_s2))
 
 
 def _apply_one(state: PointsState, kind: int, slot: int, xy, marks
@@ -485,10 +895,12 @@ def _set_row_col(mat: torch.Tensor, rows: torch.Tensor, at: torch.Tensor
 
 
 def _apply_batch(state: PointsState, cache: EnergyCache, spec: EnergySpec,
-                 kinds, slots, xys, markss, pos_us, mark_us, accept
-                 ) -> Tuple[PointsState, EnergyCache]:
+                 kinds, slots, xys, markss, pos_us, mark_us, accept,
+                 slots2=None, xys2=None, markss2=None, pos_us2=None,
+                 mark_us2=None) -> Tuple[PointsState, EnergyCache]:
     """Apply ALL accepted proposals of a superstep, every lane, in one
-    batched scatter per field.
+    batched scatter per field; with ``slots2`` also their second slots
+    (split 4: ``slot2`` is born at ``xys2``; merge 5: ``slot2`` dies).
 
     Within a lane, accepted proposals touch pairwise-distinct slots and do
     not interact, so the batched write equals the sequential application:
@@ -496,8 +908,10 @@ def _apply_batch(state: PointsState, cache: EnergyCache, spec: EnergySpec,
     k = state.capacity
     safe = torch.clamp(slots, 0, k - 1)
     tgt = torch.where(accept, safe, k)  # k = the dropped scratch row
-    write_geom = accept & ((kinds == 1) | (kinds == 3))
-    tgt_geom = torch.where(write_geom, safe, k)
+    geom = (kinds == 1) | (kinds == 3)
+    if slots2 is not None:
+        geom = geom | (kinds == 4) | (kinds == 5)
+    tgt_geom = torch.where(accept & geom, safe, k)
 
     new_xy = _scatter(state.xy, tgt_geom, xys)
     new_marks = _scatter(state.marks, tgt_geom, markss)
@@ -510,33 +924,56 @@ def _apply_batch(state: PointsState, cache: EnergyCache, spec: EnergySpec,
                                    markss[..., 2]))
     areas = _scatter(cache.areas, tgt_geom, rect_area(markss[..., 0],
                                                       markss[..., 1]))
+    if slots2 is not None:
+        safe2 = torch.clamp(slots2, 0, k - 1)
+        tgt2 = torch.where(accept & (kinds == 4), safe2, k)
+        new_xy = _scatter(new_xy, tgt2, xys2)
+        new_marks = _scatter(new_marks, tgt2, markss2)
+        new_alive = _scatter(_scatter(new_alive, tgt2, True), torch.where(
+            accept & (kinds == 5), safe2, k), False)
+        polys = _scatter(polys, tgt2, marks_to_poly(
+            xys2, markss2[..., 0], markss2[..., 1], markss2[..., 2]))
+        areas = _scatter(areas, tgt2, rect_area(markss2[..., 0],
+                                                markss2[..., 1]))
     state2 = PointsState(xy=new_xy, marks=new_marks, alive=new_alive)
+    if slots2 is not None:
+        # a split's second child's rows too, in the same pass (a
+        # merged-away slot needs none: its entries are dead-masked)
+        safe = torch.cat([safe, safe2], dim=1)
+        tgt = torch.cat([tgt, tgt2], dim=1)
+        pos_us = torch.cat([pos_us, pos_us2], dim=1)
+        mark_us = torch.cat([mark_us, mark_us2], dim=1)
 
     # pair rows of every touched slot vs the FINAL state: (B, m, K)
-    dist_rows, overlap_rows, align_rows = pair_rows(
-        _rows(state2.xy, safe), _rows(state2.marks, safe),
-        _rows(polys, safe), _rows(areas, safe), state2, polys, areas, spec)
-    cache2 = EnergyCache(
-        dist=_set_row_col(cache.dist, dist_rows, tgt),
-        overlap=_set_row_col(cache.overlap, overlap_rows, tgt),
-        align=_set_row_col(cache.align, align_rows, tgt),
-        pos_e=_scatter(cache.pos_e, tgt, pos_us),
-        mark_e=_scatter(cache.mark_e, tgt, mark_us),
-        polys=polys, areas=areas,
-    )
-    return state2, cache2
+    rows = pair_rows(_rows(state2.xy, safe), _rows(state2.marks, safe),
+                     _rows(polys, safe), _rows(areas, safe), state2, polys,
+                     areas, spec)
+    mats = [_set_row_col(mat, row, tgt) for mat, row in
+            zip((cache.dist, cache.overlap, cache.align), rows)]
+    return state2, EnergyCache(dist=mats[0], overlap=mats[1], align=mats[2],
+                               pos_e=_scatter(cache.pos_e, tgt, pos_us),
+                               mark_e=_scatter(cache.mark_e, tgt, mark_us),
+                               polys=polys, areas=areas)
 
 
 def make_parallel_step(maps: EnergyMaps, spec: EnergySpec,
                        comb: EnergyCombiner, kd: KernelData, alpha_t: float,
                        t_target: float, n_cells: int,
-                       data_moves: bool = True):
+                       data_moves: bool = True, move_switch: bool = False,
+                       split_merge: bool = False):
     """Superstep over ``n_cells`` x ``n_cells`` jittered active cells in
     each of the B lanes of ``maps`` and ``kd`` (one launch sequence for all
-    lanes): ``step((state, cache, energy, temp), generators)`` takes one
-    generator per lane and returns the new carry and the per-lane
-    (accepted, proposed) counts as (B,) device tensors. The temperature is
-    one float for every lane."""
+    lanes): ``step((state, cache, energy, temp), gens, type_gens=None)``
+    takes one generator per lane and returns the new carry, the per-lane
+    (accepted, proposed) counts as (B,) device tensors and the (B, m)
+    kinds of the accepted proposals (0 where rejected). The temperature is
+    one float for every lane.
+
+    ``split_merge`` adds the cell-confined split/merge pair (two-slot
+    proposals); ``move_switch`` draws one move type per superstep and lane
+    from ``type_gens`` (one CPU generator per lane, see ``run_steps``) and
+    builds only the drawn types' branches. With both off the superstep
+    draws what it always drew."""
     assert CELL >= max(spec.overlap_max_dist, spec.align_max_dist), (
         f"CELL={CELL} < interaction radius "
         f"{max(spec.overlap_max_dist, spec.align_max_dist)}: concurrent cell "
@@ -551,8 +988,9 @@ def make_parallel_step(maps: EnergyMaps, spec: EnergySpec,
     m = grid_y.shape[0]
     ix = _Index.make(maps.position.shape[0], m, dev)
     cells = ix.cell[0]
+    type_p = torch.from_numpy(_type_probs(data_moves))
 
-    def step(carry, gens):
+    def step(carry, gens, type_gens=None):
         state, cache, energy, temp = carry
         off = _randint(gens, -CELL, CELL, 2, device=dev)  # (B, 2)
         y0s = off[:, :1] + grid_y
@@ -568,40 +1006,66 @@ def make_parallel_step(maps: EnergyMaps, spec: EnergySpec,
             free_oks, order[:, torch.clamp(cells, max=state.capacity - 1)],
             0)
 
-        kinds, slots, xys, markss, log_fwds, log_backs = _cell_proposal(
-            gens, state, kd, view, ix, h, w, y0s, x0s, free_slots, free_oks,
-            data_moves=data_moves)
-        deltas, (pos_us, mark_us) = superstep_deltas(
-            state, cache, maps, spec, comb, kinds, slots, xys, markss)
+        if move_switch:
+            assert type_gens is not None, "move_switch needs type_gens"
+            types = [int(torch.multinomial(type_p, 1, generator=g))
+                     for g in type_gens]
+            prop = _cell_proposal_switched(gens, types, state, kd, view, ix,
+                                           h, w, y0s, x0s, free_slots,
+                                           free_oks)
+        else:
+            prop = _cell_proposal(gens, state, kd, view, ix, h, w, y0s, x0s,
+                                  free_slots, free_oks, data_moves=data_moves,
+                                  split_merge=split_merge)
+        kinds, slots, xys, markss, log_fwds, log_backs = prop[:6]
+        second = prop[6:] if prop[6] is not None else (None,) * 3
+        deltas, unary = superstep_deltas(state, cache, maps, spec, comb,
+                                         kinds, slots, xys, markss, *second)
         log_alpha = -deltas / temp + log_backs - log_fwds
         accept = ((torch.log(_rand(gens, m, device=dev) + EPS) < log_alpha)
                   & (kinds != 0))
         state, cache = _apply_batch(state, cache, spec, kinds, slots, xys,
-                                    markss, pos_us, mark_us, accept)
+                                    markss, *unary[:2], accept, *second,
+                                    *unary[2:])
         energy = energy + torch.where(accept, deltas, 0.0).sum(dim=-1)
         temp = temp * alpha_t if temp > t_target else temp
         return (state, cache, energy, temp), (accept.sum(dim=-1),
-                                              (kinds != 0).sum(dim=-1))
+                                              (kinds != 0).sum(dim=-1),
+                                              torch.where(accept, kinds, 0))
 
     return step
 
 
+N_KINDS = 6  # no-op, birth, death, move, split, merge
+
+
 def run_steps(step, state: PointsState, cache: EnergyCache,
-              energy: torch.Tensor, temp: float, n_supersteps: int, gens):
+              energy: torch.Tensor, temp: float, n_supersteps: int, gens,
+              by_kind: Optional[torch.Tensor] = None):
     """Run ``n_supersteps`` of ``step``; returns the final carry and the
     summed per-lane (accepted, proposed) counts (device tensors, no host
-    sync)."""
+    sync). ``by_kind``, a (B, N_KINDS) long tensor, gathers the accepted
+    proposals by kind in place (the no-op column counts the rejected). A
+    switched superstep's move types come from one CPU generator per lane,
+    seeded with its lane generator's seed, so a lane's types follow its
+    seed alone."""
     carry = (state, cache, energy, temp)
+    type_gens = [torch.Generator().manual_seed(g.initial_seed())
+                 for g in gens]
     acc = prop = torch.zeros(energy.shape, dtype=torch.long,
                              device=energy.device)
     for _ in range(n_supersteps):
-        carry, (a, p) = step(carry, gens)
+        carry, (a, p, kinds) = step(carry, gens, type_gens)
         acc, prop = acc + a, prop + p
+        if by_kind is not None:
+            by_kind.scatter_add_(1, kinds, torch.ones_like(kinds))
     return carry, acc, prop
 
 
-def chain_stats(kd: KernelData, acc, prop, energy, state, temp) -> ChainStats:
-    """Per-lane superstep totals in slot 0 of the per-kernel counts."""
+def chain_stats(kd: KernelData, acc, prop, energy, state, temp,
+                by_kind=None) -> ChainStats:
+    """Per-lane superstep totals in slot 0 of the per-kernel counts (and
+    the accepted proposals by kind, where counted)."""
     n_kernels = kd.p_kernels.shape[-1]
     accepted = torch.zeros(acc.shape + (n_kernels,), device=energy.device)
     proposed = torch.zeros(prop.shape + (n_kernels,), device=energy.device)
@@ -609,7 +1073,7 @@ def chain_stats(kd: KernelData, acc, prop, energy, state, temp) -> ChainStats:
     proposed[..., 0] = prop
     return ChainStats(accepted=accepted, proposed=proposed,
                       final_energy=energy, final_n_points=state.n_points,
-                      final_temperature=temp)
+                      final_temperature=temp, accepted_by_kind=by_kind)
 
 
 def run_parallel_chain(gen: torch.Generator, init_state: PointsState,
@@ -617,7 +1081,8 @@ def run_parallel_chain(gen: torch.Generator, init_state: PointsState,
                        comb: EnergyCombiner, kd: KernelData,
                        n_supersteps: int, t0: float = 1.0,
                        alpha_t: float = 0.999, t_target: float = 0.0,
-                       data_moves: bool = True
+                       data_moves: bool = True, move_switch: bool = False,
+                       split_merge: bool = False
                        ) -> Tuple[PointsState, ChainStats]:
     """Anneal one configuration with cell-parallel supersteps over the
     whole map (one lane; unlaned inputs and outputs)."""
@@ -625,7 +1090,9 @@ def run_parallel_chain(gen: torch.Generator, init_state: PointsState,
     n_cells = max(h, w) // (2 * CELL) + 1
     state, maps, kd = (expand_lanes(x, 1) for x in (init_state, maps, kd))
     step = make_parallel_step(maps, spec, comb, kd, alpha_t, t_target,
-                              n_cells, data_moves=data_moves)
+                              n_cells, data_moves=data_moves,
+                              move_switch=move_switch,
+                              split_merge=split_merge)
     cache0 = build_cache(state, maps, spec)
     u0 = energy_from_cache(state, maps, spec, comb, cache0)
     (state, _, energy, temp), acc, prop = run_steps(

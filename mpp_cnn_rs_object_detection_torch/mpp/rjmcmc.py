@@ -1,13 +1,14 @@
-"""Chain parameters, the carried energy cache and papangelou scores.
+"""The sequential RJMCMC chain, its energy cache and papangelou scores.
 
-Counterpart of ``RJMCMCParams``, ``EnergyCache``, ``build_cache``,
-``update_cache``, ``energy_from_cache``, ``ChainStats`` and ``papangelou`` in
-``mpp_cnn_rs_object_detection_tpu/mpp/rjmcmc.py`` (CNN data term).
-The chain's functions (``build_cache``, ``energy_from_cache`` and their
-helpers) take states, caches and maps with a leading lane axis B
-(``mpp/state.py``); ``update_cache`` and ``papangelou`` take one
-configuration and add a lane of one at their boundary. The sequential scan
-sampler is not ported in this slice.
+Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/rjmcmc.py`` (CNN data
+term): ``RJMCMCParams``, ``EnergyCache``, ``build_cache``,
+``update_cache``, ``energy_from_cache``, ``ChainStats``, the annealed
+sequential chain (``make_step_fn``, ``run_chain``, ``run_chains_batch``)
+and ``papangelou``. The chain's functions take states, caches and maps
+with a leading lane axis B (``mpp/state.py``): the tiles of a scene or the
+independent chains of ``run_chains_batch``, all advanced by one launch
+sequence per step. ``update_cache`` also takes one configuration with an
+int slot, and ``papangelou`` takes one configuration.
 """
 
 from __future__ import annotations
@@ -28,6 +29,13 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
     data_columns,
     lane_view,
     unary_terms,
+)
+from mpp_cnn_rs_object_detection_torch.mpp.kernels import (
+    KernelData,
+    Variates,
+    apply_proposal,
+    build_proposal,
+    draw_variates,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
@@ -101,14 +109,19 @@ class EnergyCache:
 
 @dataclass
 class ChainStats:
-    """Per lane: (B, n_kernels) counts with the superstep totals in slot 0,
-    (B,) final energies and point counts; one temperature for all lanes."""
+    """Per lane: (B, n_kernels) accepted and proposed counts (per kernel
+    for the sequential chain; the cell-parallel chain puts its superstep
+    totals in slot 0), (B,) final energies and point counts; one
+    temperature for all lanes."""
 
     accepted: torch.Tensor
     proposed: torch.Tensor
     final_energy: torch.Tensor
     final_n_points: torch.Tensor
     final_temperature: float
+    # the cell-parallel chain's accepted proposals by kind, (B, 6): no-op
+    # (the rejected), birth, death, move, split, merge
+    accepted_by_kind: Optional[torch.Tensor] = None
 
 
 def pair_rows(xy_u, marks_u, polys_u, areas_u, state: PointsState,
@@ -151,33 +164,47 @@ def build_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
 
 
 def update_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
-                 cache: EnergyCache, slot: int) -> EnergyCache:
-    """Refresh row + column ``slot`` of one configuration's cache after
-    a birth/move of that slot."""
-    s = slice(slot, slot + 1)
-    mk = state.marks[s]
-    poly_s = marks_to_poly(state.xy[s], mk[:, 0], mk[:, 1], mk[:, 2])
-    area_s = rect_area(mk[:, 0], mk[:, 1])
-    polys = cache.polys.clone()
-    areas = cache.areas.clone()
-    polys[s] = poly_s
-    areas[s] = area_s
-    rows = pair_rows(state.xy[s], mk, poly_s, area_s, state, polys, areas,
-                     spec)
-    mats = []
-    for mat, row in zip((cache.dist, cache.overlap, cache.align), rows):
-        mat = mat.clone()
-        mat[slot, :] = row[0]
-        mat[:, slot] = row[0]
-        mats.append(mat)
-    pos_s, mark_s = (x[0] for x in unary_terms(
-        expand_lanes(maps, 1), state.xy[None, s], mk[None]))
-    pos_e = cache.pos_e.clone()
-    mark_e = cache.mark_e.clone()
-    pos_e[s] = pos_s
-    mark_e[s] = mark_s
+                 cache: EnergyCache, slot) -> EnergyCache:
+    """Refresh rows + columns ``slot`` of each lane's cache after a birth,
+    move or death there: laned state, maps and cache with a (B,) or
+    (B, m) long ``slot`` (the m rows computed against the same state in
+    one pass, by gathers and scatters, with no host read), or one
+    configuration with an int slot. Only the slots' polygons and areas
+    are rebuilt; a slot given twice, or refreshed again, gets the same
+    values."""
+    if state.xy.ndim == 2:
+        at = torch.as_tensor(slot, device=state.xy.device).reshape(1)
+        return lane(update_cache(expand_lanes(state, 1),
+                                 expand_lanes(maps, 1), spec,
+                                 expand_lanes(cache, 1), at), 0)
+    k = state.capacity
+    at = slot.long().reshape(slot.shape[0], -1)  # (B, m)
+
+    def index(like):
+        return at.reshape(at.shape + (1,) * (like.ndim - 2)).expand(
+            at.shape + like.shape[2:])
+
+    def rows_at(x):
+        return torch.gather(x, 1, index(x))
+
+    def set_rows(x, v):
+        return x.scatter(1, index(v), v)
+
+    xy_u, mk_u = rows_at(state.xy), rows_at(state.marks)
+    poly_u = marks_to_poly(xy_u, mk_u[..., 0], mk_u[..., 1], mk_u[..., 2])
+    area_u = rect_area(mk_u[..., 0], mk_u[..., 1])
+    polys, areas = set_rows(cache.polys, poly_u), set_rows(cache.areas,
+                                                           area_u)
+    rows = pair_rows(xy_u, mk_u, poly_u, area_u, state, polys, areas, spec)
+    col = at[:, None, :].expand(-1, k, -1)
+    mats = [set_rows(mat, row).scatter(2, col, row.transpose(1, 2))
+            for mat, row in zip((cache.dist, cache.overlap, cache.align),
+                                rows)]
+    pos_u, mark_u = unary_terms(maps, xy_u, mk_u)
     return EnergyCache(dist=mats[0], overlap=mats[1], align=mats[2],
-                       pos_e=pos_e, mark_e=mark_e, polys=polys, areas=areas)
+                       pos_e=set_rows(cache.pos_e, pos_u),
+                       mark_e=set_rows(cache.mark_e, mark_u), polys=polys,
+                       areas=areas)
 
 
 def pair_masks(state: PointsState, dist: torch.Tensor, spec: EnergySpec):
@@ -234,6 +261,137 @@ def energy_from_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
                    cache.areas, state.marks[..., 1])
     vec = torch.where(state.alive[..., None], vec, 0.0)
     return torch.where(state.alive, combine(comb, vec), 0.0).sum(dim=-1)
+
+
+def select_lanes(accept: torch.Tensor, new, old):
+    """The dataclass of tensors whose lane b is ``new``'s where
+    ``accept[b]``, else ``old``'s (bit for bit)."""
+    def pick(a, b):
+        return torch.where(accept.reshape(accept.shape + (1,) * (a.ndim - 1)),
+                           a, b)
+
+    return type(new)(**{f: pick(getattr(new, f), getattr(old, f))
+                        for f in new.__dataclass_fields__})
+
+
+def step_from_variates(carry, v: Variates, u: torch.Tensor,
+                       maps: EnergyMaps, spec: EnergySpec,
+                       comb: EnergyCombiner, kd: KernelData):
+    """The deterministic core of a sequential step: each lane's proposal
+    from its variates ``v`` ((B, 1) lanes, ``kernels.draw_variates``),
+    the cache refreshed at both touched slots, U recomputed from it, and
+    the Metropolis-Hastings-Green test ``log(u + EPS) < -dU / T + log
+    q_back - log q_fwd`` with ``u`` (B,) uniform. A rejected lane keeps
+    its state, cache and energy bit for bit. Returns the (state, cache,
+    energy) carry and the (B,) accepts."""
+    state, cache, energy, temp = carry
+    k = state.capacity
+    one = PointsState(xy=state.xy[:, None], marks=state.marks[:, None],
+                      alive=state.alive[:, None])
+    prop = build_proposal(v, one, kd)
+    applied = apply_proposal(one, prop)
+    new_state = PointsState(xy=applied.xy[:, 0], marks=applied.marks[:, 0],
+                            alive=applied.alive[:, 0])
+    # the proposal's slot and the second of a split or merge (a repeat of
+    # the first for the other kinds), refreshed in one pass
+    slots = torch.clamp(torch.cat([prop.slot, prop.slot2], dim=1), 0, k - 1)
+    new_cache = update_cache(new_state, maps, spec, cache, slots)
+    new_energy = energy_from_cache(new_state, maps, spec, comb, new_cache)
+    log_alpha = (-(new_energy - energy) / temp + prop.log_back[:, 0]
+                 - prop.log_fwd[:, 0])
+    accept = torch.log(u + EPS) < log_alpha
+    return (select_lanes(accept, new_state, state),
+            select_lanes(accept, new_cache, cache),
+            torch.where(accept, new_energy, energy)), accept
+
+
+def make_step_fn(maps: EnergyMaps, spec: EnergySpec, comb: EnergyCombiner,
+                 kd: KernelData, alpha_t: float, t_target: float):
+    """One annealed step of B lanes: ``step((state, cache, energy, temp),
+    gen)`` draws every lane's variates and accept uniform from ``gen``
+    (four calls, shaped over the lanes) and applies
+    ``step_from_variates``. Returns the new carry and the (B,) accepts
+    and kernel indices (device tensors); the temperature is one host
+    float for all lanes."""
+    def step(carry, gen: torch.Generator):
+        state, _, energy, temp = carry
+        v = draw_variates(gen, PointsState(
+            xy=state.xy[:, None], marks=state.marks[:, None],
+            alive=state.alive[:, None]), kd)
+        u = torch.rand(energy.shape, generator=gen, device=energy.device)
+        (state, cache, energy), accept = step_from_variates(
+            carry, v, u, maps, spec, comb, kd)
+        temp = temp * alpha_t if temp > t_target else temp
+        return (state, cache, energy, temp), (accept, v.kernel[:, 0])
+
+    return step
+
+
+def run_chain(gen: torch.Generator, init_state: PointsState,
+              maps: EnergyMaps, spec: EnergySpec, comb: EnergyCombiner,
+              kd: KernelData, n_steps: int, t0: float = 1.0,
+              alpha_t: float = 0.999, t_target: float = 0.0,
+              n_samples: int = 0, samples_interval: int = 1,
+              burn_in: int = 0, step_offset: int = 0):
+    """``n_steps`` annealed steps of B lanes (laned state, maps and kernel
+    data; every draw from ``gen``, shaped over the lanes).
+
+    With ``n_samples > 0`` the state of global step ``g = step_offset +
+    i`` is kept when ``g >= burn_in and g % samples_interval == 0``, in a
+    rolling buffer of the last ``n_samples``: ``take`` depends on the step
+    counters alone, so the buffer is written on the device with no host
+    read. Returns ``(state, stats)``, or ``(state, stats, samples,
+    n_collected)`` with ``samples`` laned (B, n_samples, K, ...), oldest
+    first (the valid ones at the end), and ``n_collected`` the host count
+    of sampling steps in this call, the same for every lane."""
+    step = make_step_fn(maps, spec, comb, kd, alpha_t, t_target)
+    cache = build_cache(init_state, maps, spec)
+    energy = energy_from_cache(init_state, maps, spec, comb, cache)
+    n_lanes, n_k = energy.shape[0], kd.p_kernels.shape[-1]
+    dev = energy.device
+    accepted = torch.zeros((n_lanes, n_k), device=dev)
+    proposed = torch.zeros((n_lanes, n_k), device=dev)
+    ones = torch.ones((n_lanes, 1), device=dev)
+    buf = None
+    if n_samples > 0:
+        buf = type(init_state)(**{
+            f: torch.zeros((n_lanes, n_samples) + getattr(
+                init_state, f).shape[1:], dtype=getattr(init_state, f).dtype,
+                device=dev) for f in init_state.__dataclass_fields__})
+    n_coll = 0
+    carry = (init_state, cache, energy, float(t0))
+    for i in range(n_steps):
+        carry, (acc, kernel) = step(carry, gen)
+        accepted.scatter_add_(1, kernel[:, None], acc[:, None].float())
+        proposed.scatter_add_(1, kernel[:, None], ones)
+        g = step_offset + i
+        if buf is not None and g >= burn_in and g % samples_interval == 0:
+            pos = n_coll % n_samples
+            for f in buf.__dataclass_fields__:
+                getattr(buf, f)[:, pos] = getattr(carry[0], f)
+            n_coll += 1
+    state, _, energy, temp = carry
+    stats = ChainStats(accepted=accepted, proposed=proposed,
+                       final_energy=energy, final_n_points=state.n_points,
+                       final_temperature=temp)
+    if buf is None:
+        return state, stats
+    shift = -(n_coll % n_samples)
+    samples = type(buf)(**{f: torch.roll(getattr(buf, f), shift, dims=1)
+                           for f in buf.__dataclass_fields__})
+    return state, stats, samples, n_coll
+
+
+def run_chains_batch(gen: torch.Generator, init_states: PointsState,
+                     maps: EnergyMaps, spec: EnergySpec,
+                     comb: EnergyCombiner, kd: KernelData, n_steps: int,
+                     t0: float = 1.0, alpha_t: float = 0.999,
+                     t_target: float = 0.0):
+    """B independent chains of one tile: ``init_states`` laned (B, K),
+    ``maps`` and ``kd`` one tile's, seen as B lanes without a copy."""
+    n = init_states.xy.shape[0]
+    return run_chain(gen, init_states, expand_lanes(maps, n), spec, comb,
+                     expand_lanes(kd, n), n_steps, t0, alpha_t, t_target)
 
 
 def papangelou(state: PointsState, maps: EnergyMaps, spec: EnergySpec,

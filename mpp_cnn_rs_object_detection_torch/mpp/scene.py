@@ -1,17 +1,22 @@
-"""Exact whole-scene MPP inference on one device.
+"""Scene-level MPP inference on one device: exact and tiled.
 
-Counterpart of the exact-scene part of
-``mpp_cnn_rs_object_detection_tpu/mpp/scene.py``: pad the maps to the scene
-shape bucket, initialise from the thresholded detection map, run ONE global
-cell-parallel chain in annealing segments over the full maps, then score
-every detection with its papangelou intensity. The superstep budget math is
-the JAX package's, verbatim, and so are the joint stopping check between
-segments and the segment checkpoint (``.ck.npz``: the lanes' states, the
-progress and a fingerprint of the budget; resumed when the fingerprint
-matches, removed at the end). The lanes of the chain are the scenes of a
-batch (``run_exact_scenes_batched``) or the restarts of one scene
-(``run_exact_scene``); either way one launch sequence per superstep serves
-them all. The mesh is not ported.
+Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/scene.py``.
+
+Exact mode (``run_exact_scene``, ``run_exact_scenes_batched``): pad the
+maps to the scene shape bucket, initialise from the thresholded detection
+map, run ONE global cell-parallel chain in annealing segments over the
+full maps, then score every detection with its papangelou intensity. The
+superstep budget math is the JAX package's, verbatim, and so are the joint
+stopping check between segments and the segment checkpoint (``.ck.npz``:
+the lanes' states, the progress and a fingerprint of the budget; resumed
+when the fingerprint matches, removed at the end). The lanes of the chain
+are the scenes of a batch or the restarts of one scene; either way one
+launch sequence per superstep serves them all.
+
+Tiled mode (``run_tiled_scene``, the JAX package's default): overlapping
+tiles of the scene run as the lanes of one sequential (or cell-parallel)
+chain, their detections merged with a 3 px dedup and rescored on the
+scene's maps. The meshes are not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +38,11 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
     stack_param_dists,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import EnergySetup
-from mpp_cnn_rs_object_detection_torch.mpp.image_data import ImageWMaps
+from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
+    ImageWMaps,
+    merge_patch_results,
+    split_image,
+)
 from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import CELL
 from mpp_cnn_rs_object_detection_torch.mpp.polish import polish_state
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
@@ -42,6 +51,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
     build_cache,
     energy_from_cache,
     papangelou,
+    run_chain,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
@@ -163,8 +173,10 @@ class SceneResult:
     marks: np.ndarray    # (N, 3) size/ratio/angle
     scores: np.ndarray   # (N,) papangelou
     total_moves: int = 0
-    supersteps: int = 0          # supersteps run
-    planned_supersteps: int = 0  # the full budget
+    # chain steps run and budgeted: supersteps of the cell-parallel
+    # sampler, single moves of the sequential one
+    supersteps: int = 0
+    planned_supersteps: int = 0
     capacity: int = 0
     seconds: Dict[str, float] = field(default_factory=dict)
     chain: Optional[ChainOutcome] = None
@@ -172,6 +184,11 @@ class SceneResult:
     lane_energies: List[float] = field(default_factory=list)  # restarts
     best_lane: int = 0           # the restart lane kept
     polish_energies: Optional[Tuple[float, float]] = None  # U before, after
+    n_tiles: int = 1             # lanes of the tiled mode
+    samples: int = 0             # post-burn-in samples collected per tile
+    # the exact chain's accepted proposals by kind in this run (no-op =
+    # rejected, birth, death, move, split, merge), of the kept lane
+    accepted_by_kind: List[int] = field(default_factory=list)
 
 
 # the chain checkpoint's format tag, the fingerprint's first entry: the JAX
@@ -238,24 +255,27 @@ class _Anneal:
     done: int
     t0: float
     stopped: bool
+    by_kind: Optional[torch.Tensor] = None  # (B, 6) accepted by kind
 
 
 def _anneal(state: PointsState, maps: EnergyMaps, kd, setup: EnergySetup,
             comb: EnergyCombiner, budget: SuperstepBudget,
             lane_seeds: Sequence[Tuple[int, int]], done: int, t0: float,
-            data_moves: bool, device: torch.device,
+            moves: Dict[str, bool], device: torch.device,
             stopping: Optional[StoppingCondition],
             max_segments: Optional[int],
             on_segment: Optional[Callable[[PointsState, int, float], None]],
             name: str) -> _Anneal:
     """Segments of the laned chain from superstep ``done``: lane b's
     generator is reseeded per segment from ``lane_seeds[b]`` = (seed,
-    restart lane). ``stopping`` is evaluated once per segment, jointly over
-    the lanes (``stopping.batch_summary``), so every lane stops at the same
-    superstep; ``on_segment(state, done, t0)`` follows every segment after
-    which the anneal goes on (the checkpoint writer)."""
+    restart lane); ``moves`` holds the superstep's ``data_moves``,
+    ``move_switch`` and ``split_merge``. ``stopping`` is evaluated once
+    per segment, jointly over the lanes (``stopping.batch_summary``), so
+    every lane stops at the same superstep; ``on_segment(state, done,
+    t0)`` follows every segment after which the anneal goes on (the
+    checkpoint writer)."""
     gens = [torch.Generator(device=device) for _ in lane_seeds]
-    cache = energy = None
+    cache = energy = by_kind = None
     stopped = False
     segments = 0
     summaries: List[SegmentSummary] = []
@@ -269,8 +289,10 @@ def _anneal(state: PointsState, maps: EnergyMaps, kd, setup: EnergySetup,
         state, cache, stats = run_exact_scene_chain(
             gens, state, maps, setup.spec, comb, kd, n_supersteps=n, t0=t0,
             alpha_t=budget.alpha_super, t_target=budget.t_target,
-            cache=cache, data_moves=data_moves)
+            cache=cache, **moves)
         energy = stats.final_energy
+        by_kind = (stats.accepted_by_kind if by_kind is None
+                   else by_kind + stats.accepted_by_kind)
         done += n
         segments += 1
         t0 = max(float(t0 * budget.alpha_super ** n), budget.t_target)
@@ -293,13 +315,13 @@ def _anneal(state: PointsState, maps: EnergyMaps, kd, setup: EnergySetup,
                 and not stopped:
             on_segment(state, done, t0)
     return _Anneal(state=state, cache=cache, energy=energy, done=done, t0=t0,
-                   stopped=stopped)
+                   stopped=stopped, by_kind=by_kind)
 
 
 def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
                params: RJMCMCParams, seeds: Sequence[int], restarts: int,
                cap: int, segment_size: int, max_segments: Optional[int],
-               data_moves: bool, device: torch.device,
+               moves: Dict[str, bool], device: torch.device,
                checkpoint_path: Optional[str],
                stopping: Optional[StoppingCondition], polish_steps: int,
                name: str) -> List[SceneResult]:
@@ -371,7 +393,7 @@ def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
     t_prep = time.perf_counter() - t_start
     t_chain = time.perf_counter()
     run = _anneal(state, maps, kd, setup, comb, budget, lane_seeds, done, t0,
-                  data_moves, device, stopping, max_segments,
+                  moves, device, stopping, max_segments,
                   checkpoint if checkpoint_path else None, name)
     _sync(device)
     t_chain = time.perf_counter() - t_chain
@@ -424,7 +446,9 @@ def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
                      "score": time.perf_counter() - t_score - t_polish},
             chain=outcome, stopped=run.stopped,
             lane_energies=[float(u) for u in u_lanes[i]], best_lane=best,
-            polish_energies=polished))
+            polish_energies=polished,
+            accepted_by_kind=([] if run.by_kind is None
+                              else run.by_kind[b].tolist())))
     logging.info(f"{name}: {run.done} supersteps x ~{budget.mps} cells in "
                  f"{n_lanes} lane(s) (K={cap}) [prep={t_prep:.1f}s "
                  f"chain={t_chain:.1f}s]")
@@ -439,16 +463,20 @@ def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
                     data_moves: bool = True, device=None,
                     checkpoint_path: Optional[str] = None,
                     stopping: Optional[StoppingCondition] = None,
-                    restarts: int = 1, polish_steps: int = 0) -> SceneResult:
+                    restarts: int = 1, polish_steps: int = 0,
+                    move_switch: bool = False,
+                    split_merge: bool = False) -> SceneResult:
     """EXACT whole-scene MPP: one global cell-parallel chain over the full
     (bucket-padded) maps, then papangelou scores.
 
     ``restarts``: N independent anneals of the scene as N lanes of one
     launch sequence (lane 0 is the one-lane chain), keeping the lane of
     lowest final energy; ``polish_steps``: gradient polish of the kept
-    configuration (``mpp/polish.py``). ``checkpoint_path`` and ``stopping``
-    as in ``run_exact_scenes_batched``; ``max_segments`` stops the anneal
-    after that many segments and scores the state reached (a bounded run;
+    configuration (``mpp/polish.py``); ``data_moves``, ``move_switch`` and
+    ``split_merge`` choose the superstep's moves (``make_parallel_step``).
+    ``checkpoint_path`` and ``stopping`` as in
+    ``run_exact_scenes_batched``; ``max_segments`` stops the anneal after
+    that many segments and scores the state reached (a bounded run;
     ``supersteps`` says how far it got)."""
     device = resolve_device(device)
     t_start = time.perf_counter()
@@ -456,9 +484,11 @@ def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
     data, c0, m0, orig = _prepare(data, setup, target, init, device)
     cap = _capacity(*data.shape, capacity, len(c0))
     prepared = [(data, c0, m0, orig, time.perf_counter() - t_start)]
+    moves = dict(data_moves=data_moves, move_switch=move_switch,
+                 split_merge=split_merge)
     return _run_lanes(prepared, setup, comb, params, [seed],
                       max(1, int(restarts)), cap, segment_size, max_segments,
-                      data_moves, device, checkpoint_path, stopping,
+                      moves, device, checkpoint_path, stopping,
                       int(polish_steps), f"scene {data.name}")[0]
 
 
@@ -473,6 +503,8 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
                              checkpoint_path: Optional[str] = None,
                              stopping: Optional[StoppingCondition] = None,
                              polish_steps: int = 0,
+                             move_switch: bool = False,
+                             split_merge: bool = False,
                              ) -> List[SceneResult]:
     """Exact scenes over a batch sharing ONE bucket and ONE capacity, as
     one program: the B scenes are the lanes of one launch sequence per
@@ -501,7 +533,259 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
         prepared.append((d, c0, m0, orig, time.perf_counter() - t_start))
     cap = max(_capacity(target_h, target_w, capacity, len(p[1]))
               for p in prepared)
+    moves = dict(data_moves=data_moves, move_switch=move_switch,
+                 split_merge=split_merge)
     return _run_lanes(prepared, setup, comb, params, seeds, 1, cap,
-                      segment_size, max_segments, data_moves, device,
+                      segment_size, max_segments, moves, device,
                       checkpoint_path, stopping, int(polish_steps),
                       f"batched scenes x{len(datas)}")
+
+
+# ------------------------------------------------------------------ tiled
+
+
+def pad_image_w_maps(data: ImageWMaps, target: int) -> ImageWMaps:
+    """Zero-pad the image and maps (bottom/right, numpy or torch) so each
+    side reaches ``target`` px; in place, and returned."""
+    h, w = data.shape
+    ph, pw = max(0, target - h), max(0, target - w)
+    if ph == 0 and pw == 0:
+        return data
+    data.image = _pad(data.image, ph, pw)
+    data.detection_map = _pad(data.detection_map, ph, pw)
+    data.param_dist_maps = [_pad(p, ph, pw) for p in data.param_dist_maps]
+    data.shape = tuple(data.image.shape[:2])
+    return data
+
+
+# the tiled checkpoint's format tag (the fingerprint's first entry). The
+# port writes it as ``NNNN_tiles.ck.npz``, a name the JAX package never
+# reads, and the JAX package's tiled file has a shorter fingerprint.
+TILED_CHECKPOINT_FORMAT = 3.0
+TILED_CHECKPOINT_KEYS = {"xy", "marks", "alive", "done", "t0", "fingerprint",
+                         "s_xy", "s_marks", "s_alive", "s_count"}
+SAMPLERS = ("sequential", "parallel")
+_STATE_FIELDS = ("xy", "marks", "alive")
+
+
+def _keep_last_samples(kept: PointsState, n_kept: int, new: PointsState,
+                       n_new: int, n_samp: int) -> PointsState:
+    """The last ``n_samp`` of a tile's kept samples followed by a
+    segment's: laned (B, n_samp, ...) buffers with the valid entries at
+    the end (the counts are host ints, the same for every tile)."""
+    v_old, v_new = min(n_kept, n_samp), min(n_new, n_samp)
+    out = {}
+    for f in _STATE_FIELDS:
+        old, seg = getattr(kept, f), getattr(new, f)
+        cat = torch.cat([old[:, n_samp - v_old:], seg[:, n_samp - v_new:]],
+                        dim=1)[:, -n_samp:]
+        buf = old.clone()
+        buf[:, n_samp - cat.shape[1]:] = cat
+        out[f] = buf
+    return PointsState(**out)
+
+
+def tile_lanes(patches: List[ImageWMaps], setup: EnergySetup,
+                 capacity: int, init: str, kernel_weights,
+                 use_split_merge: bool, device: torch.device):
+    """The tiles as lanes: stacked energy maps, kernel data and initial
+    states (naive detection, GT or empty, at most ``capacity`` points;
+    each tile's intensity is its initial point count)."""
+    inits = []
+    for p in patches:
+        if init == "naive":
+            c0, m0 = naive_detection(p, setup.detection_threshold)
+        elif init == "gt":
+            c0, m0 = p.gt_centers, p.gt_marks
+        else:
+            c0 = np.zeros((0, 2), np.float32)
+            m0 = np.zeros((0, 3), np.float32)
+        inits.append((c0[:capacity], m0[:capacity]))
+    n = len(patches)
+    maps = stack_lanes(lambda i: setup.make_maps(patches[i]), n)
+    kd = stack_lanes(lambda i: setup.make_kernel_data(
+        patches[i], intensity=max(1, len(inits[i][0])),
+        kernel_weights=kernel_weights, use_split_merge=use_split_merge), n)
+    state = stack_lanes(lambda i: state_from_arrays(
+        *inits[i], capacity=capacity, device=device), n)
+    return maps, kd, state
+
+
+def run_tiled_scene(data: ImageWMaps, setup: EnergySetup,
+                    comb: EnergyCombiner, params: RJMCMCParams,
+                    seed: int = 0, patch_size: int = 256,
+                    min_overlap: int = 32, capacity: int = 256,
+                    init: str = "naive", kernel_weights=None,
+                    use_split_merge: bool = False,
+                    sampler: str = "sequential",
+                    checkpoint_path: Optional[str] = None,
+                    segment_size: int = 4096,
+                    max_segments: Optional[int] = None,
+                    polish_steps: int = 0, data_moves: bool = True,
+                    move_switch: bool = False, split_merge: bool = False,
+                    device=None) -> Optional[SceneResult]:
+    """TILED MPP inference (the JAX ``run_mpp_on_scene`` default): pad the
+    scene to ``patch_size``, split it into overlapping tiles, run every
+    tile's chain as a lane of ONE program, offset the tiles' detections
+    to the scene and deduplicate them within 3 px, optionally polish, and
+    score them by papangelou on the scene's maps.
+
+    ``sampler``: ``"sequential"`` runs ``params.total_steps`` moves of the
+    sequential chain per tile (``rjmcmc.run_chain``, one generator for all
+    tiles), collecting the post-burn-in samples of the config; a tile's
+    result is then its last sample. ``"parallel"`` runs the same budget in
+    cell-parallel supersteps (``data_moves``, ``move_switch``,
+    ``split_merge``; one generator per tile) and keeps the final state.
+    ``use_split_merge`` gives the sequential mixture its split/merge pair.
+
+    The chains run in segments of ``segment_size`` moves, reseeded per
+    segment from (``seed``, moves done[, tile]) and threading the
+    temperature as ``max(t0 * alpha ** n, t_target)``. ``checkpoint_path``:
+    every tile's state, sample buffer and the progress after each
+    unfinished segment (``TILED_CHECKPOINT_FORMAT``), resumed when its
+    fingerprint matches and removed at the end. ``max_segments``: stop
+    after that many segments and return None, as a killed run would (a
+    resume then continues from the checkpoint)."""
+    assert sampler in SAMPLERS, sampler
+    device = resolve_device(device)
+    t_start = time.perf_counter()
+    data = pad_image_w_maps(data, patch_size)
+    data.param_dist_maps = stack_param_dists(data.param_dist_maps,
+                                             device=device)
+    data.detection_map = torch.as_tensor(data.detection_map,
+                                         dtype=torch.float32, device=device)
+    patches = split_image(data, patch_size, min_overlap)
+    n_tiles = len(patches)
+    maps, kd, state = tile_lanes(patches, setup, capacity, init,
+                                   kernel_weights, use_split_merge, device)
+    spec = setup.spec
+    alpha = params.resolved_alpha()
+    t_target = params.resolved_t_target()
+    if sampler == "parallel":
+        mps = max(1, (patch_size // (2 * CELL) + 1) ** 2 // 2)
+        alpha_step = float(np.power(alpha, mps))
+        total = max(1, params.total_steps // mps)
+        seg = max(1, segment_size // mps)
+        n_samp = 0
+    else:
+        alpha_step, total, seg = alpha, params.total_steps, segment_size
+        n_samp = max(0, int(params.n_samples))
+    interval = params.resolved_interval
+    fingerprint = np.array(
+        [TILED_CHECKPOINT_FORMAT, SAMPLERS.index(sampler), total, seg,
+         alpha_step, t_target, capacity, n_samp, interval, n_tiles, seed],
+        np.float64)
+    done, t0 = 0, float(params.t0)
+    samples = PointsState(**{
+        f: torch.zeros((n_tiles, n_samp) + getattr(state, f).shape[1:],
+                       dtype=getattr(state, f).dtype, device=device)
+        for f in _STATE_FIELDS})
+    s_count = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        ck = np.load(checkpoint_path)
+        if (TILED_CHECKPOINT_KEYS <= set(ck.files)
+                and ck["fingerprint"].shape == fingerprint.shape
+                and bool(np.allclose(ck["fingerprint"], fingerprint))
+                and int(ck["done"]) < total):
+            state = PointsState(**{f: torch.as_tensor(ck[f], device=device)
+                                   for f in _STATE_FIELDS})
+            samples = PointsState(**{
+                f: torch.as_tensor(ck["s_" + f], device=device)
+                for f in _STATE_FIELDS})
+            done, t0 = int(ck["done"]), float(ck["t0"])
+            s_count = int(ck["s_count"])
+            logging.info(f"scene {data.name}: resuming tiles at move {done}")
+        else:
+            logging.warning(f"scene {data.name}: tiled checkpoint mismatch "
+                            "- restart")
+
+    def checkpoint():
+        np.savez(checkpoint_path, done=done, t0=t0, fingerprint=fingerprint,
+                 s_count=s_count,
+                 **{f: getattr(state, f).cpu().numpy() for f in _STATE_FIELDS},
+                 **{"s_" + f: getattr(samples, f).cpu().numpy()
+                    for f in _STATE_FIELDS})
+
+    _sync(device)
+    t_prep = time.perf_counter() - t_start
+    t_chain = time.perf_counter()
+    gen = torch.Generator(device=device)
+    segments = 0
+    while done < total:
+        n = min(seg, total - done)
+        if sampler == "parallel":
+            gens = [torch.Generator(device=device).manual_seed(
+                segment_seed(seed, done, t)) for t in range(n_tiles)]
+            state, _, _ = run_exact_scene_chain(
+                gens, state, maps, spec, comb, kd, n_supersteps=n, t0=t0,
+                alpha_t=alpha_step, t_target=t_target, data_moves=data_moves,
+                move_switch=move_switch, split_merge=split_merge)
+        else:
+            gen.manual_seed(segment_seed(seed, done))
+            out = run_chain(gen, state, maps, spec, comb, kd, n_steps=n,
+                            t0=t0, alpha_t=alpha, t_target=t_target,
+                            n_samples=n_samp, samples_interval=interval,
+                            burn_in=params.burn_in, step_offset=done)
+            state = out[0]
+            if n_samp > 0 and out[3] > 0:
+                samples = _keep_last_samples(samples, s_count, out[2],
+                                             out[3], n_samp)
+                s_count += out[3]
+        done += n
+        t0 = max(float(t0 * alpha_step ** n), t_target)
+        segments += 1
+        if done < total:
+            if checkpoint_path:
+                checkpoint()
+            if max_segments is not None and segments >= max_segments:
+                return None
+    _sync(device)
+    t_chain = time.perf_counter() - t_chain
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        os.remove(checkpoint_path)
+
+    t_score = time.perf_counter()
+    if s_count > 0:
+        # the reference keeps a tile's LAST collected sample
+        state = PointsState(**{f: getattr(samples, f)[:, -1]
+                               for f in _STATE_FIELDS})
+    centers_l, marks_l, scores_l = [], [], []
+    for t in range(n_tiles):
+        st = lane(state, t)
+        scores_t = papangelou(st, lane(maps, t), spec, comb).cpu().numpy()
+        xy, mk = state_to_arrays(st)
+        centers_l.append(xy)
+        marks_l.append(mk)
+        scores_l.append(scores_t[st.alive.cpu().numpy()])
+    centers, marks, scores = merge_patch_results(patches, centers_l, marks_l,
+                                                 scores_l, distance=3.0)
+    polished, t_polish = None, 0.0
+    if len(centers) > 0:
+        # the global rescore on the scene's maps, capacity bucketed to 64
+        scene_maps = setup.make_maps(data)
+        cap_b = -(-len(centers) // 64) * 64
+        scene_state = state_from_arrays(centers, marks, capacity=cap_b,
+                                        device=device)
+        if polish_steps > 0:
+            t_p = time.perf_counter()
+            scene_state, (u_pre, u_post) = polish_state(
+                scene_state, scene_maps, spec, comb, n_steps=polish_steps)
+            centers, marks = state_to_arrays(scene_state)
+            polished = (float(u_pre), float(u_post))
+            t_polish = time.perf_counter() - t_p
+            logging.info(f"scene {data.name}: polish {polish_steps} steps "
+                         f"U {polished[0]:.2f} -> {polished[1]:.2f}")
+        scores = papangelou(scene_state, scene_maps, spec,
+                            comb).cpu().numpy()[:len(centers)]
+    logging.info(f"scene {data.name}: {n_tiles} tiles x {done} {sampler} "
+                 f"steps -> {len(centers)} detections [prep={t_prep:.1f}s "
+                 f"chain={t_chain:.1f}s]")
+    return SceneResult(
+        centers=np.asarray(centers).reshape(-1, 2),
+        marks=np.asarray(marks).reshape(-1, 3),
+        scores=np.asarray(scores).reshape(-1),
+        total_moves=n_tiles * params.total_steps, supersteps=done,
+        planned_supersteps=total, capacity=capacity,
+        seconds={"prep": t_prep, "chain": t_chain, "polish": t_polish,
+                 "score": time.perf_counter() - t_score - t_polish},
+        polish_energies=polished, n_tiles=n_tiles, samples=s_count)

@@ -2,18 +2,22 @@
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/stopping.py``
 (``SegmentSummary``, the ``StopOn*`` conditions, ``CompositeStopping`` and
-``stopping_from_config``; the sequential sampler's segmented runner is not
-ported). The chain runs in fixed-size segments and the host checks the
-condition between them on one summary per segment, taken jointly over the
-lanes of a batch (``batch_summary``).
+``stopping_from_config``, the sequential chain's ``run_chain_segmented``
+and ``ChainTimer``). The chain runs in fixed-size segments and the host
+checks the condition between them on one summary per segment, taken
+jointly over the lanes of a batch (``batch_summary``).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import run_chain
 
 
 @dataclass
@@ -135,3 +139,55 @@ def stopping_from_config(cfg) -> Optional[StoppingCondition]:
     params = dict(cfg)
     kind = params.pop("kind")
     return kinds[kind](**params)
+
+
+def run_chain_segmented(gen: torch.Generator, init_state, maps, spec, comb,
+                        kd, stopping: StoppingCondition, segment: int = 2000,
+                        max_segments: int = 100, t0: float = 1.0,
+                        alpha_t: float = 0.999, t_target: float = 0.0):
+    """Segments of ``segment`` sequential steps (``rjmcmc.run_chain``, B
+    lanes, draws from ``gen``) until ``stopping`` fires on the segments'
+    joint summaries, threading the temperature between them. Returns
+    ``(state, summaries)``."""
+    summaries: List[SegmentSummary] = []
+    state, temp, it = init_state, float(t0), 0
+    for _ in range(max_segments):
+        if stopping.do_stop(summaries):
+            break
+        t_start = time.perf_counter()
+        state, stats = run_chain(gen, state, maps, spec, comb, kd,
+                                 n_steps=segment, t0=temp, alpha_t=alpha_t,
+                                 t_target=t_target)
+        energy = stats.final_energy.cpu().numpy()
+        it += segment
+        temp = stats.final_temperature
+        summaries.append(batch_summary(
+            energy, stats.final_n_points.cpu().numpy(),
+            stats.accepted.cpu().numpy(), stats.proposed.cpu().numpy(),
+            iter=it, temperature=temp,
+            seconds=time.perf_counter() - t_start))
+    return state, summaries
+
+
+class ChainTimer:
+    """Moves per second over a chain's segments and one line per segment
+    (iteration, energy, points, temperature, accept rate, seconds)."""
+
+    def __init__(self):
+        self.segments: List[SegmentSummary] = []
+
+    def extend(self, summaries: List[SegmentSummary]):
+        self.segments.extend(summaries)
+
+    def show_results(self) -> str:
+        total_iter = self.segments[-1].iter if self.segments else 0
+        total_s = sum(s.seconds for s in self.segments)
+        mps = total_iter / total_s if total_s else 0.0
+        lines = [f"chain: {total_iter} moves in {total_s:.2f}s = "
+                 f"{mps:.0f} moves/s"]
+        for s in self.segments:
+            lines.append(
+                f"  iter {s.iter:>8} E {s.energy:>10.3f} n {s.n_points:>4} "
+                f"T {s.temperature:.4f} acc {s.accept_rate:.3f} "
+                f"{s.seconds:.2f}s")
+        return "\n".join(lines)

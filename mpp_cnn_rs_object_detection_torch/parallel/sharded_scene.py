@@ -6,9 +6,9 @@ Counterpart of ``run_exact_scene_chain`` in
 maps of every lane (the state, maps and kernel data carry a leading lane
 axis B; ``gens`` holds one generator per lane) and return the states, the
 carried cache (pass it back to continue without an O(K^2) rebuild) and the
-segment's per-lane stats. One launch sequence per superstep serves all B
-lanes, where the JAX package vmaps the one-lane chain. The row-sharded
-mesh variant is not ported.
+segment's per-lane stats, with the accepted proposals by kind. One launch
+sequence per superstep serves all B lanes, where the JAX package vmaps the
+one-lane chain. The row-sharded mesh variant is not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.energies import (
 from mpp_cnn_rs_object_detection_torch.mpp.kernels import KernelData
 from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import (
     CELL,
+    N_KINDS,
     chain_stats,
     make_parallel_step,
     run_steps,
@@ -46,6 +47,8 @@ def run_exact_scene_chain(gens: Sequence[torch.Generator],
                           alpha_t: float = 0.999, t_target: float = 0.0,
                           cache: Optional[EnergyCache] = None,
                           data_moves: bool = True,
+                          move_switch: bool = False,
+                          split_merge: bool = False,
                           ) -> Tuple[PointsState, EnergyCache, ChainStats]:
     h, w = maps.position.shape[-2:]
     if cache is None:
@@ -53,7 +56,12 @@ def run_exact_scene_chain(gens: Sequence[torch.Generator],
     u0 = energy_from_cache(init_state, maps, spec, comb, cache)
     n_cells = max(h, w) // (2 * CELL) + 1
     step = make_parallel_step(maps, spec, comb, kd, alpha_t, t_target,
-                              n_cells, data_moves=data_moves)
+                              n_cells, data_moves=data_moves,
+                              move_switch=move_switch,
+                              split_merge=split_merge)
+    by_kind = torch.zeros((u0.shape[0], N_KINDS), dtype=torch.long,
+                          device=u0.device)
     (state, cache, energy, temp), acc, prop = run_steps(
-        step, init_state, cache, u0, t0, n_supersteps, gens)
-    return state, cache, chain_stats(kd, acc, prop, energy, state, temp)
+        step, init_state, cache, u0, t0, n_supersteps, gens, by_kind)
+    return state, cache, chain_stats(kd, acc, prop, energy, state, temp,
+                                     by_kind)

@@ -181,9 +181,12 @@ def test_restarts_checkpoint_pins_the_lane_count(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("superstep_split_merge", True, 11), ("superstep_move_switch", True, 11),
-    ("scene_mesh", True, 15), ("batch_mesh", True, 15)])
+    ("superstep_split_merge", True, None), ("superstep_move_switch", True, None),
+    ("scene_mesh", True, 15), ("batch_mesh", True, 15),
+    ("tile_mesh", True, 15)])
 def test_unported_options_still_raise(option, value, item):
+    """The meshes raise with their ROADMAP.md item; the superstep's
+    split/merge pair and move switch are ported and pass."""
     from mpp_cnn_rs_object_detection_torch.mpp import mpp_model as tmm
 
     config = tmm.load_mpp_config("mpp_log_r12tta")
@@ -192,6 +195,10 @@ def test_unported_options_still_raise(option, value, item):
     if option.startswith("superstep"):
         block = block["rjmcmc_params"]
     block[option] = value
+    if item is None:
+        tmm.check_inference_config(config)
+        assert tmm.chain_options(config)[option[len("superstep_"):]]
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tmm.check_inference_config(config)
 
@@ -201,11 +208,12 @@ def test_unported_options_still_raise(option, value, item):
     ("mpp_log_r10pol", None), ("mpp_log_r10rst", None),
     ("mpp_log_r10tta", None), ("mpp_log_r11ls", None),
     ("mpp_log_r11lstta", None), ("mpp_log_r12tta", None),
-    ("mpp_log_r10sm", 11), ("mpp_log_r10ttasm", 11)])
+    ("mpp_log_r10sm", None), ("mpp_log_r10ttasm", None)])
 def test_trained_extension_configs(name, item):
     """The trained extension configs: the port accepts every switch they
-    turn on and loads their trained energy model, or raises with the
-    ROADMAP item of the switch it lacks (split/merge)."""
+    turn on (the split/merge pair of ``_r10sm`` and ``_r10ttasm`` too) and
+    loads their trained energy model, or raises with the ROADMAP item of
+    a switch it lacks."""
     from mpp_cnn_rs_object_detection_torch.mpp import mpp_model as tmm
 
     config = tmm.load_mpp_config(name)

@@ -1,6 +1,7 @@
 """The port's bench script (``bench_torch.py``) on the CPU at tiny shapes:
 every stage runs and the last line is one parseable JSON object with the
-headline, the B = 1 and B = 3 ms per superstep, and the absent stages.
+headline, the B = 1 and B = 3 ms per superstep, and the sequential chains'
+moves/s against the plain-Python baseline's.
 Without a CUDA device and without ``--device cpu`` it fails and prints no
 result."""
 
@@ -31,11 +32,16 @@ def test_bench_prints_one_json_line_on_cpu():
     assert extra["device"] == "cpu" and extra["nvidia_smi"] is None
     assert extra["depth_cut"] is True
     assert set(extra["stages"]) == {"cnn", "scene", "scene_batched",
-                                    "superstep"}
+                                    "superstep", "sequential", "baseline"}
     assert extra["stages"]["cnn"]["mfu"] is None  # no device metric on CPU
     assert extra["stages"]["scene_batched"]["scenes"] == 3
     assert set(extra["ms_per_superstep"]) == {"B1", "B3"}
-    assert set(extra["absent"]) == {"jax", "baseline"}
+    seq, base = extra["stages"]["sequential"], extra["stages"]["baseline"]
+    assert seq["chains"] == 2 and seq["steps"] == 10
+    assert seq["moves_per_s"] > 0 and base["moves_per_s"] > 0
+    assert extra["sequential_vs_baseline"] == (seq["moves_per_s"]
+                                               / base["moves_per_s"])
+    assert "absent" not in extra
     for stage in ("scene", "scene_batched"):
         s = extra["stages"][stage]
         assert s["supersteps"] < s["planned_supersteps"]

@@ -238,29 +238,29 @@ def test_manual_legacy_mode_runs(trained):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("train posnet", 12), ("train shapenet", 12), ("tiled mpp_r3", 10),
+    ("train posnet", 12), ("train shapenet", 12), ("tile_mesh mpp_r3", 15),
     ("contrast setup", 13)])
 def test_what_still_raises(case, item):
-    """CNN training, the tiled scene mode of a manual config, and the
-    contrast energy setup raise with the ROADMAP.md item that ports them."""
+    """CNN training, the tile mesh of a tiled manual config, and the
+    contrast energy setup raise with the ROADMAP.md item that ports them
+    (the tiled mode itself is ported)."""
+    if case.startswith("tile_mesh"):
+        cfg = tmm.load_mpp_config("mpp_r3")
+        assert "manual" in cfg and cfg["inference"]["scene_mode"] == "tiled"
+        tmm.check_inference_config(cfg)
+        cfg["inference"]["tile_mesh"] = True
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         if case.startswith("train"):
             t_main(["-p", "train", "-m", case.split()[1], "-c",
                     "pos_r2cp_tta"], device="cpu")
-        elif case.startswith("tiled"):
-            cfg = tmm.load_mpp_config("mpp_r3")
-            assert "manual" in cfg
+        elif case.startswith("tile_mesh"):
             tmm.check_inference_config(cfg)
         else:
             tes.make_energy_setup({"energy_setup": "contrast"})
 
 
 # every MPP config: its train mode, and what its inference still lacks
-_MANUAL_EXACT = ("mpp_exact_smoke", "mpp_verify_r3")
-_INFER_ITEM = {"config_mpp_log": 10, "mpp_log_quick": 10, "mpp_hrcM": 10,
-               "mpp_quick": 10, "mpp_r3": 10, "mpp_r4": 10, "mpp_r4p": 10,
-               "mpp_r6": 10, "mpp_verify_r2": 10, "mpp_r2": 15,
-               "mpp_log_r10sm": 11, "mpp_log_r10ttasm": 11}
+_INFER_ITEM = {"mpp_r2": 15}
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -269,8 +269,8 @@ _INFER_ITEM = {"config_mpp_log": 10, "mpp_log_quick": 10, "mpp_hrcM": 10,
 def test_every_mpp_config_trains_or_builds(name):
     """The 26 logistic configs train with the ordering criterion on the
     no-calibration setup; the manual ones build on the legacy setup; at
-    infer, the tiled ones (item 10), the split/merge ones (item 11) and
-    the meshed one (item 15) raise, the others run."""
+    infer, every config runs (tiled or exact, with or without the
+    split/merge pair) except the meshed one (item 15)."""
     cfg = tmm.load_mpp_config(name)
     setup = tes.make_energy_setup(cfg)
     if "manual" in cfg:
@@ -283,7 +283,8 @@ def test_every_mpp_config_trains_or_builds(name):
     item = _INFER_ITEM.get(name)
     if item is None:
         tmm.check_inference_config(cfg)
-        assert "manual" not in cfg or name in _MANUAL_EXACT
+        assert cfg["inference"].get("scene_mode", "tiled") in ("tiled",
+                                                               "exact")
     else:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tmm.check_inference_config(cfg)

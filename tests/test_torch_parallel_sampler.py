@@ -1,10 +1,12 @@
 """Cell-parallel superstep of the PyTorch port against the JAX package,
 fed the SAME proposals (the two packages draw different random numbers):
-exact per-proposal dU, the batched apply with its scratch-row scatter, and
-the port's own chain keeping its carried cache and energy exact. The port's
-superstep runs lanes (scenes or restarts) on a leading axis: one lane, and
-two lanes with their own states, maps and proposals, each against the JAX
-functions on that lane's inputs."""
+exact per-proposal dU (one-slot, and two-slot for the split/merge pair),
+the batched apply with its scratch-row scatter, and the port's own chain
+keeping its carried cache and energy exact; the split/merge and switched
+supersteps' equilibria against JAX's. The port's superstep runs lanes
+(scenes or restarts) on a leading axis: one lane, and two lanes with their
+own states, maps and proposals, each against the JAX functions on that
+lane's inputs."""
 
 import jax
 import jax.numpy as jnp
@@ -33,12 +35,14 @@ from mpp_cnn_rs_object_detection_tpu.mpp import energies as jen
 from mpp_cnn_rs_object_detection_tpu.mpp import parallel_sampler as jps
 from mpp_cnn_rs_object_detection_tpu.mpp import rjmcmc as jrj
 from mpp_cnn_rs_object_detection_tpu.mpp.state import (
+    empty_state as j_empty,
     state_from_arrays as j_state,
 )
 from mpp_cnn_rs_object_detection_tpu.ops.mappings import (
     default_mappings as j_mappings,
 )
 from tests._torch_util import one_torch_thread  # noqa: F401
+from tests.test_parallel_sampler import _setup as j_setup
 
 H = W = 160
 C = 8
@@ -358,3 +362,171 @@ def test_cell_assert():
     wide = ten.EnergySpec(names=ten.LEGACY_SPEC.names, overlap_max_dist=48.0)
     with pytest.raises(AssertionError):
         tps.make_parallel_step(tmaps, wide, tc, tkd, 0.99, 0.0, 3)
+
+
+def _two_slot_batch():
+    """The split/merge inputs of tests/test_parallel_sampler.py: a split
+    of slot 0 (its second child overlapping slot 1), a merge of slots 3
+    and 4, then a birth, a death and a move with no second slot."""
+    kinds = np.array([4, 5, 1, 2, 3], np.int64)
+    slots = np.array([0, 3, 9, 1, 6], np.int64)
+    slots2 = np.array([10, 4, -1, -1, -1], np.int64)
+    xys = np.array([[28.0, 28.0], [100.5, 61.5], [31.0, 125.0], [33, 34],
+                    [70, 100]], np.float32)
+    xys2 = np.array([[32.0, 33.0], [0, 0], [0, 0], [0, 0], [0, 0]],
+                    np.float32)
+    ms = np.array([[5.5, 0.55, 0.3], [6.0, 0.6, 1.1], [5.0, 0.5, 0.3],
+                   [6, 0.6, 0.4], [7, 0.7, 0.4]], np.float32)
+    ms2 = np.array([[6.5, 0.65, 0.5], [1, 0.1, 0.1], [1, 0.1, 0.1],
+                    [1, 0.1, 0.1], [1, 0.1, 0.1]], np.float32)
+    return kinds, slots, xys, ms, slots2, xys2, ms2
+
+
+def test_two_slot_deltas_match_jax_and_bruteforce():
+    """The top-3 two-slot dU of a split and a merge against JAX's and
+    against applying both slots, refreshing the cache and recomputing U;
+    the single-slot lanes of the same call keep their one-slot deltas."""
+    jmaps, tmaps, _, jc, tc, _ = _setup()
+    xy, marks = _crowded_state()
+    js, ts = j_state(xy, marks, 12), t_state(xy, marks, 12)
+    spec_j, spec_t = jen.LEGACY_SPEC, ten.LEGACY_SPEC
+    jca, tca = jrj.build_cache(js, jmaps, spec_j), _cache(ts, tmaps, spec_t)
+    kinds, slots, xys, ms, slots2, xys2, ms2 = _two_slot_batch()
+    want = np.asarray(jps.superstep_deltas(
+        js, jca, jmaps, spec_j, jc, *(jnp.asarray(a) for a in (
+            kinds.astype(np.int32), slots.astype(np.int32), xys, ms)),
+        slots2=jnp.asarray(slots2.astype(np.int32)), xys2=jnp.asarray(xys2),
+        markss2=jnp.asarray(ms2)))
+    got, unary = tps.superstep_deltas(
+        *_one_lane(ts, tca, tmaps), spec_t, tc,
+        *_lanes(kinds, slots, xys, ms, slots2, xys2, ms2))
+    assert len(unary) == 4
+    got = got[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    one, _ = tps.superstep_deltas(*_one_lane(ts, tca, tmaps), spec_t, tc,
+                                  *_lanes(kinds[2:], slots[2:], xys[2:],
+                                          ms[2:]))
+    np.testing.assert_allclose(got[2:], one[0].numpy(), rtol=1e-5,
+                               atol=1e-5)
+    u0 = _energy(ts, tmaps, spec_t, tc, tca)
+    for i in range(2):
+        st = ts.replace(xy=ts.xy.clone(), marks=ts.marks.clone(),
+                        alive=ts.alive.clone())
+        st.xy[slots[i]], st.marks[slots[i]] = _t(xys[i]), _t(ms[i])
+        if kinds[i] == 4:
+            st.xy[slots2[i]], st.marks[slots2[i]] = _t(xys2[i]), _t(ms2[i])
+        st.alive[slots2[i]] = bool(kinds[i] == 4)
+        ca = trj.update_cache(st, tmaps, spec_t, tca, int(slots[i]))
+        ca = trj.update_cache(st, tmaps, spec_t, ca, int(slots2[i]))
+        np.testing.assert_allclose(
+            got[i], float(_energy(st, tmaps, spec_t, tc, ca) - u0),
+            rtol=RTOL, atol=ATOL, err_msg=f"two-slot proposal {i}")
+
+
+def test_apply_batch_second_slot_matches_jax_and_rebuild():
+    """An accepted split (its second child born in a free slot) and merge
+    (its partner dies) beside single-slot proposals: the batched apply
+    against JAX's, and its cache against a rebuild on the final state."""
+    jmaps, tmaps, _, _, _, _ = _setup()
+    xy, marks = _crowded_state()
+    js, ts = j_state(xy, marks, 12), t_state(xy, marks, 12)
+    spec_j, spec_t = jen.LEGACY_SPEC, ten.LEGACY_SPEC
+    jca, tca = jrj.build_cache(js, jmaps, spec_j), _cache(ts, tmaps, spec_t)
+    kinds, slots, xys, ms, slots2, xys2, ms2 = _two_slot_batch()
+    accept = np.array([True, True, True, False, True])
+    tpos, tmark = tps._unary_at(*_one_lane(tmaps), spec_t, *_lanes(xys, ms))
+    tpos2, tmark2 = tps._unary_at(*_one_lane(tmaps), spec_t,
+                                  *_lanes(xys2, ms2))
+    unary_j = [jax.vmap(lambda a, b: jps._unary_at(jmaps, spec_j, a, b))(
+        jnp.asarray(x), jnp.asarray(m)) for x, m in ((xys, ms), (xys2, ms2))]
+    js2, jca2 = jps._apply_batch(
+        js, jca, spec_j, jnp.asarray(kinds.astype(np.int32)),
+        jnp.asarray(slots.astype(np.int32)), jnp.asarray(xys),
+        jnp.asarray(ms), *unary_j[0], jnp.asarray(accept),
+        slots2=jnp.asarray(slots2.astype(np.int32)), xys2=jnp.asarray(xys2),
+        markss2=jnp.asarray(ms2), pos_us2=unary_j[1][0],
+        mark_us2=unary_j[1][1])
+    ts2, tca2 = (lane(x, 0) for x in tps._apply_batch(
+        *_one_lane(ts, tca), spec_t, *_lanes(kinds, slots, xys, ms), tpos,
+        tmark, _t(accept)[None], *_lanes(slots2, xys2, ms2), tpos2, tmark2))
+    for f in ("xy", "marks", "alive"):
+        np.testing.assert_allclose(getattr(ts2, f).numpy(),
+                                   np.asarray(getattr(js2, f)), err_msg=f)
+    assert bool(ts2.alive[10]) and not bool(ts2.alive[4])  # born, merged
+    for f in ("dist", "overlap", "align", "pos_e", "mark_e", "polys",
+              "areas"):
+        np.testing.assert_allclose(getattr(tca2, f).numpy(),
+                                   np.asarray(getattr(jca2, f)), rtol=RTOL,
+                                   atol=ATOL, err_msg=f)
+    fresh = _cache(ts2, tmaps, spec_t)
+    pair = (ts2.alive[:, None] & ts2.alive[None, :]).numpy()
+    for f in ("dist", "overlap", "align"):
+        np.testing.assert_allclose(getattr(tca2, f).numpy()[pair],
+                                   getattr(fresh, f).numpy()[pair],
+                                   rtol=RTOL, atol=ATOL, err_msg=f)
+    alive = ts2.alive.numpy()
+    for f in ("pos_e", "mark_e"):
+        np.testing.assert_allclose(getattr(tca2, f).numpy()[alive],
+                                   getattr(fresh, f).numpy()[alive],
+                                   rtol=RTOL, atol=ATOL, err_msg=f)
+
+
+def _chain_pair(seed, n_super, alpha, **moves):
+    """The blob scene annealed from an empty state by both packages."""
+    jmaps, tmaps, tkd, jc, tc, det = _setup()
+    jkd = j_setup()[1]
+    jfinal, jstats = jps.run_parallel_chain(
+        jax.random.PRNGKey(seed), j_empty(32), jmaps, jen.LEGACY_SPEC, jc,
+        jkd, n_supersteps=n_super, alpha_t=alpha, **moves)
+    maps, kd = expand_lanes(tmaps, 1), expand_lanes(tkd, 1)
+    by_kind = torch.zeros((1, tps.N_KINDS), dtype=torch.long)
+    step = tps.make_parallel_step(maps, ten.LEGACY_SPEC, tc, kd, alpha, 0.0,
+                                  H // (2 * tps.CELL) + 1, **moves)
+    state = expand_lanes(empty_state(32), 1)
+    cache = trj.build_cache(state, maps, ten.LEGACY_SPEC)
+    (state, _, energy, _), _, _ = tps.run_steps(
+        step, state, cache, torch.zeros(1), 1.0, n_super,
+        [torch.Generator().manual_seed(seed)], by_kind)
+    return (jfinal, float(jstats.final_energy), lane(state, 0),
+            float(energy[0]), by_kind[0], tmaps, tc, det)
+
+
+@pytest.mark.parametrize("moves,n_super,alpha", [
+    (dict(split_merge=True), 800, 0.994),
+    (dict(move_switch=True), 1500, 0.9968)])
+def test_equilibrium_matches_jax(moves, n_super, alpha):
+    """The split/merge superstep and the switched one, each annealed from
+    an empty state in both packages (as tests/test_parallel_sampler.py
+    runs JAX's): the port's final energy is at least half as low as
+    JAX's, its carried energy equals a recompute, it finds as many
+    distinct objects (within 2), its points sit on the planted blobs, and
+    (split/merge) splits and merges were accepted."""
+    jfinal, e_j, final, e_t, by_kind, tmaps, tc, det = _chain_pair(
+        3, n_super, alpha, **moves)
+    assert e_j < 0 and e_t <= 0.5 * e_j, (e_t, e_j)
+    np.testing.assert_allclose(
+        e_t, float(ten.total_energy(final, tmaps, ten.LEGACY_SPEC, tc)),
+        rtol=1e-3, atol=1e-3)
+    # distinct objects (points more than 3 px apart): stacking points on
+    # a blob lowers this energy, so raw counts measure the kernels'
+    # efficiency at finding that, not the posterior's objects
+    def n_distinct(st):
+        kept = []
+        for p in state_to_arrays(st)[0]:
+            if all(np.hypot(*(p - q)) > 3 for q in kept):
+                kept.append(p)
+        return len(kept)
+
+    nd_t = n_distinct(final)
+    nd_j = n_distinct(type(final)(**{f: _t(getattr(jfinal, f)) for f in (
+        "xy", "marks", "alive")}))
+    assert abs(nd_t - nd_j) <= 2 and nd_t >= 4, (nd_t, nd_j)
+    n = int(final.n_points)
+    xy, _ = state_to_arrays(final)
+    on_blob = sum(det[int(p[0]), int(p[1])] > 0.3 for p in xy)
+    assert n >= 3 and on_blob >= n - 1, f"{on_blob}/{n} on detections"
+    if moves.get("split_merge"):
+        assert int(by_kind[4]) > 0 and int(by_kind[5]) > 0, by_kind
+    else:
+        assert int(by_kind[4]) == int(by_kind[5]) == 0
+    assert int(by_kind[1:].sum()) > 0
