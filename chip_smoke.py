@@ -872,7 +872,7 @@ def sequential_step_probe(model, setup, comb, pid: int, device) -> dict:
     data.detection_map = torch.as_tensor(data.detection_map, device=device)
     patches = split_image(data, patch, 32)
     maps, kd, state = tile_lanes(patches, setup, model.capacity, "naive",
-                                 None, False, device)
+                                 False, device)
     step = make_step_fn(maps, setup.spec, comb, kd, 0.999, 0.0)
     cache = build_cache(state, maps, setup.spec)
     carry = (state, cache, energy_from_cache(state, maps, setup.spec, comb,
@@ -948,28 +948,35 @@ def tiled_phase(root: str, config, device) -> None:
           f"budget ({full.total_steps} steps): "
           f"{np.mean(ms_step) * full.total_steps / 1e3:.1f} s per scene",
           flush=True)
-    # a killed scene (one segment) resumes from its checkpoint
+    # a killed scene (one segment) resumes from its checkpoint to its
+    # uninterrupted run's detections
     ck = os.path.join(root, "tiled_resume.ck.npz")
     short = dataclasses.replace(params, n_steps=RESUME_BURN_IN)
     kw = dict(seed=0, patch_size=patch, capacity=model.capacity,
               segment_size=RESUME_SEGMENT, device=device)
     with inside(root):
-        killed = run_tiled_scene(model._load_image(0, "val"),
-                                 model.energy_setup, model.energy_model,
-                                 short, checkpoint_path=ck, max_segments=1,
-                                 **kw)
+        def run(**extra):
+            return run_tiled_scene(model._load_image(0, "val"),
+                                   model.energy_setup, model.energy_model,
+                                   short, **kw, **extra)
+
+        whole = run()
+        killed = run(checkpoint_path=ck, max_segments=1)
         written = os.path.exists(ck)
-        resumed = run_tiled_scene(model._load_image(0, "val"),
-                                  model.energy_setup, model.energy_model,
-                                  short, checkpoint_path=ck, **kw)
+        resumed = run(checkpoint_path=ck)
     if killed is not None or not written or os.path.exists(ck) or \
             resumed.supersteps != short.total_steps:
         raise AssertionError(f"tiled resume: killed {killed}, checkpoint "
                              f"written {written}, left {os.path.exists(ck)}")
+    for f in ("centers", "marks", "scores"):
+        if not np.array_equal(getattr(resumed, f), getattr(whole, f)):
+            raise AssertionError(f"tiled resume: {f} differ from the "
+                                 "uninterrupted run")
     print(f"  tiled checkpoint: a run of {short.total_steps} steps killed "
           f"after its first segment of {RESUME_SEGMENT} wrote it and resumed"
-          f" to step {resumed.supersteps} ({len(resumed.centers)} "
-          f"detections, {resumed.samples} samples), then removed it",
+          f" to step {resumed.supersteps}, then removed it; the resumed "
+          f"centers, marks and scores ({len(resumed.centers)} detections, "
+          f"{resumed.samples} samples) equal the uninterrupted run's",
           flush=True)
 
 
@@ -1020,8 +1027,6 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
     flagship's model (a populated configuration), one in-memory segment
     with the split/merge pair and one with the switched move type, and
     one superstep of each move set alone."""
-    import numpy as np
-
     from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
     from mpp_cnn_rs_object_detection_torch.mpp.scene import run_exact_scene
 
@@ -1048,7 +1053,6 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
     aps = check_exports(root, model, name)
     if len(captured) != CLI_SCENES:
         raise AssertionError(f"{name}: not one batch: {len(captured)}")
-    kinds = [r.accepted_by_kind for r in captured]
     for i, r in enumerate(captured):
         u, u_fresh = check_carried(r.chain, model.energy_setup,
                                    model.energy_model, f"{name} scene {i}")
@@ -1067,6 +1071,7 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
     # phase 3's scene, in memory, one segment with each new move set
     opts = mpp_model.chain_options(inference.config)
     opts["stopping"] = None
+    kinds = {}
     for label, moves in (("split/merge", dict(split_merge=True)),
                          ("move switch", dict(move_switch=True))):
         r = run_exact_scene(data, inference.setup, inference.comb,
@@ -1074,15 +1079,17 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
                             device=device, **dict(opts, **moves))
         u, u_fresh = check_carried(r.chain, inference.setup, inference.comb,
                                    label)
-        kinds.append(r.accepted_by_kind)
+        kinds[label] = r.accepted_by_kind
         print(f"  {label} in memory: {r.supersteps} supersteps in "
               f"{r.seconds['chain']:.3f} s "
               f"({1e3 * r.seconds['chain'] / r.supersteps:.3f} "
               f"ms/superstep), {int(r.chain.state.n_points)} points; "
               f"accepted by kind {r.accepted_by_kind}; carried energy "
               f"{u:.4f} vs rebuilt {u_fresh:.4f}", flush=True)
-    total = np.sum(kinds, axis=0)
-    if total[4] <= 0 or total[5] <= 0 or kinds[-1][4] or kinds[-1][5]:
+    # the split/merge segment itself accepts both; the switched one, with
+    # split/merge off, neither
+    sm, sw = kinds["split/merge"], kinds["move switch"]
+    if sm[4] <= 0 or sm[5] <= 0 or sw[4] or sw[5]:
         raise AssertionError(f"accepted splits and merges: {kinds}")
     probes = {label: superstep_probe(
         inference.setup, inference.comb, inference.config.get(

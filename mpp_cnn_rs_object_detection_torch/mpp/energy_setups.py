@@ -74,14 +74,12 @@ class EnergySetup:
         raise NotImplementedError
 
     def make_kernel_data(self, data: ImageWMaps, intensity: float,
-                         kernel_weights=None,
                          use_split_merge: bool = False) -> KernelData:
-        """The sampling inputs of ``data``; ``kernel_weights`` and
-        ``use_split_merge`` shape the sequential chain's kernel mixture
-        (8 kernels, or 10 with the split/merge pair)."""
+        """The sampling inputs of ``data``; ``use_split_merge`` gives the
+        sequential chain's kernel mixture its split/merge pair (8 kernels,
+        or 10)."""
         return make_kernel_data(data.detection_map, data.param_dist_maps,
                                 data.mappings, intensity=intensity,
-                                kernel_weights=kernel_weights,
                                 use_split_merge=use_split_merge)
 
     def load_calibration(self, save_dir: str):

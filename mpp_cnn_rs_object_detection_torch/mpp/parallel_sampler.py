@@ -170,6 +170,209 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, _lane_rows(idx, x))
 
 
+@dataclass
+class _Cells:
+    """What every move family of a superstep's cells reads: the cells'
+    extents, the points in them, the picked point (uniform among the
+    cell's points) and the cell's window of the birth density, over the
+    (B, m) lanes and cells."""
+
+    h: int
+    w: int
+    view: MapView
+    kd: KernelData
+    ix: _Index
+    y0: torch.Tensor
+    x0: torch.Tensor
+    free_slot: torch.Tensor
+    free_ok: torch.Tensor
+    lo: torch.Tensor        # (B, m, 2) the cell's first pixel
+    hi: torch.Tensor        # (B, m, 2) the cell's last pixel
+    area: torch.Tensor
+    cell_ok: torch.Tensor
+    in_cell: torch.Tensor   # (B, m, K)
+    n_cell: torch.Tensor
+    pick_ok: torch.Tensor
+    safe_slot: torch.Tensor  # the picked point (0 where the cell is empty)
+    sxy: torch.Tensor
+    smk: torch.Tensor
+    lam_cell: torch.Tensor
+    win: torch.Tensor       # (B, m, CELL, CELL) birth density
+    win_sum: torch.Tensor
+    win_prob: torch.Tensor
+
+    @classmethod
+    def make(cls, state: PointsState, kd: KernelData, view: MapView,
+             ix: _Index, h: int, w: int, y0, x0, free_slot, free_ok,
+             u_pick: torch.Tensor) -> "_Cells":
+        """``u_pick`` (B, m, K): the uniforms that pick a cell's point."""
+        ylo, xlo = torch.clamp(y0, 0, h), torch.clamp(x0, 0, w)
+        yhi, xhi = torch.clamp(y0 + CELL, 0, h), torch.clamp(x0 + CELL, 0, w)
+        area = torch.clamp((yhi - ylo) * (xhi - xlo), min=0).float()
+        px_all = state.xy[:, None, :, 0]
+        py_all = state.xy[:, None, :, 1]
+        in_cell = (state.alive[:, None, :]
+                   & (px_all >= ylo[..., None]) & (px_all < yhi[..., None])
+                   & (py_all >= xlo[..., None]) & (py_all < xhi[..., None]))
+        n_cell = in_cell.sum(dim=-1).float()
+        # uniform among the cell's points: argmax of masked uniform noise
+        pick = torch.argmax(torch.where(in_cell, u_pick, -1.0), dim=-1)
+        pick_ok = n_cell > 0
+        safe_slot = torch.where(pick_ok, pick, 0)
+        win = _windows(view.cell_density, (ix.lane[..., None, None],),
+                       y0 - view.row0_cd, x0 + CELL, ix.ar_cell)
+        win_sum = win.sum(dim=(-2, -1))
+        return cls(
+            h=h, w=w, view=view, kd=kd, ix=ix, y0=y0, x0=x0,
+            free_slot=free_slot, free_ok=free_ok,
+            lo=torch.stack([ylo, xlo], dim=-1).float(),
+            hi=torch.stack([yhi - 1, xhi - 1], dim=-1).float(),
+            area=area, cell_ok=area > 0, in_cell=in_cell, n_cell=n_cell,
+            pick_ok=pick_ok, safe_slot=safe_slot,
+            sxy=_rows(state.xy, safe_slot), smk=_rows(state.marks, safe_slot),
+            lam_cell=kd.intensity[:, None] * area / float(h * w),
+            win=win, win_sum=win_sum,
+            win_prob=win / (win_sum + EPS)[..., None, None])
+
+    @property
+    def n_classes(self) -> int:
+        return self.view.mark_dists.shape[-1]
+
+    def mark_rows(self, yi, xi) -> torch.Tensor:
+        """The three marks' class distributions at pixels (yi, xi):
+        (B, m, 3, C)."""
+        yi_l = torch.clamp(yi - self.view.row0_md, 0,
+                           self.view.mark_dists.shape[-3] - 1)
+        return self.view.mark_dists[self.ix.lane[..., None], self.ix.mark3,
+                                    yi_l[..., None], xi[..., None]]
+
+
+@dataclass
+class _Picked:
+    """The picked point's pixel, its marks' class rows and classes, and
+    its place in the cell's window."""
+
+    rows: torch.Tensor   # (B, m, 3, C)
+    cls: torch.Tensor    # (B, m, 3)
+    win_y: torch.Tensor
+    win_x: torch.Tensor
+
+    @classmethod
+    def make(cls, c: _Cells) -> "_Picked":
+        yi = torch.clamp(c.sxy[..., 0].long(), 0, c.h - 1)
+        xi = torch.clamp(c.sxy[..., 1].long(), 0, c.w - 1)
+        kd = c.kd
+        return cls(rows=c.mark_rows(yi, xi),
+                   cls=_value_to_class(kd.map_vmin[:, None, :],
+                                       kd.map_vmax[:, None, :],
+                                       kd.map_cyclic[:, None, :],
+                                       c.n_classes, c.smk),
+                   win_y=torch.clamp(yi - c.y0, 0, CELL - 1),
+                   win_x=torch.clamp(xi - c.x0, 0, CELL - 1))
+
+
+def _birth(c: _Cells, u_pos, u_jit, u_cls, u_mjit):
+    """Birth: a pixel of the cell's window of the detection density
+    (``u_pos`` (B, m)) with a uniform jitter in it (``u_jit`` (B, m, 2)),
+    each mark's class from its pixel distribution (``u_cls`` (B, m, 3)) with
+    a uniform jitter in the class (``u_mjit``). Returns (ok, xy, marks,
+    log_fwd, log_back)."""
+    b, m = c.y0.shape
+    vmin_l, vmax_l = c.kd.map_vmin[:, None, :], c.kd.map_vmax[:, None, :]
+    flat = c.win_prob.reshape(b, m, -1)
+    cell_idx = _categorical(flat, 1.0 - u_pos)
+    py = (c.y0 + cell_idx // CELL).float() + u_jit[..., 0]
+    px = (c.x0 + cell_idx % CELL).float() + u_jit[..., 1]
+    rows = c.mark_rows(torch.clamp(py.long(), 0, c.h - 1),
+                       torch.clamp(px.long(), 0, c.w - 1))
+    n_classes = c.n_classes
+    cls = _categorical(rows, 1.0 - u_cls)
+    steps = (vmax_l - vmin_l) / n_classes
+    marks = vmin_l + cls.float() * steps + u_mjit * steps
+    log_q = (_log(_take(flat, cell_idx)) + _log(c.area)
+             + _log(_take(rows, cls)).sum(dim=-1)
+             + 3 * math.log(float(n_classes)))
+    ok = c.cell_ok & c.free_ok & (c.win_sum > 1e-12)
+    return (ok, torch.stack([py, px], dim=-1), marks,
+            math.log(P_BIRTH) + log_q - _log(c.lam_cell),
+            math.log(P_DEATH) - _log(c.n_cell + 1.0))
+
+
+def _death(c: _Cells, p: _Picked):
+    """Death of the picked point: (log_fwd, log_back), the reverse being
+    the birth of that point."""
+    log_q = (_log(c.win_prob[c.ix.lane, c.ix.cell, p.win_y, p.win_x])
+             + _log(c.area) + _log(_take(p.rows, p.cls)).sum(dim=-1)
+             + 3 * math.log(float(c.n_classes)))
+    return (math.log(P_DEATH) - _log(c.n_cell),
+            math.log(P_BIRTH) + log_q - _log(c.lam_cell))
+
+
+def _gauss_translation(c: _Cells, z):
+    """The picked point moved by ``sigma_trl * z`` (``z`` (B, m, 2)) and
+    clipped to the cell: (xy, log_q), the same both ways."""
+    sigma = c.kd.sigma_trl[:, None, None]
+    delta = sigma * z
+    xy = torch.minimum(torch.maximum(c.sxy + delta, c.lo), c.hi)
+    return xy, (math.log(P_TRL) + _normal_logpdf(delta, sigma).sum(dim=-1)
+                - _log(c.n_cell))
+
+
+def _gauss_transform(c: _Cells, pid, z):
+    """Mark ``pid`` of the picked point moved by ``sigma_trf * z``
+    (wrapped where cyclic, else clamped): (marks, log_q), the same both
+    ways."""
+    kd, lane = c.kd, c.ix.lane
+    sigma = kd.sigma_trf[lane, pid]
+    delta = sigma * z
+    old = _take(c.smk, pid)
+    vmin, vmax = kd.map_vmin[lane, pid], kd.map_vmax[lane, pid]
+    new = torch.where(kd.map_cyclic[lane, pid],
+                      ((old + delta) % (vmax - vmin)) + vmin,
+                      torch.minimum(torch.maximum(old + delta, vmin), vmax))
+    return (c.smk.scatter(-1, pid[..., None], new[..., None]),
+            math.log(P_TRF) + _normal_logpdf(delta, sigma) - _log(c.n_cell))
+
+
+def _data_translation(c: _Cells, p: _Picked, u_idx, u_jit):
+    """The picked point's pixel resampled from the WINDOW patch of the
+    cell's density around it (zero outside the cell; ``u_idx`` (B, m)),
+    with a uniform jitter (``u_jit`` (B, m, 2)). Returns (valid, xy,
+    log_fwd, log_back)."""
+    b, m = c.y0.shape
+    by_cell = (c.ix.lane[..., None, None], c.ix.cell[..., None, None])
+    win_pad = F.pad(c.win, (MAX_DELTA,) * 4)
+    wloc = _windows(win_pad, by_cell, p.win_y, p.win_x, c.ix.ar_window)
+    wsum = wloc.sum(dim=(-2, -1))
+    wprob = (wloc / (wsum + EPS)[..., None, None]).reshape(b, m, -1)
+    widx = _categorical(wprob, 1.0 - u_idx)
+    new_wy = torch.clamp(p.win_y + widx // WINDOW - MAX_DELTA, 0, CELL - 1)
+    new_wx = torch.clamp(p.win_x + widx % WINDOW - MAX_DELTA, 0, CELL - 1)
+    xy = torch.stack([(c.y0 + new_wy).float() + u_jit[..., 0],
+                      (c.x0 + new_wx).float() + u_jit[..., 1]], dim=-1)
+    wloc_b = _windows(win_pad, by_cell, new_wy, new_wx, c.ix.ar_window)
+    wprob_b = wloc_b / (wloc_b.sum(dim=(-2, -1)) + EPS)[..., None, None]
+    back = (_log(wprob_b[c.ix.lane, c.ix.cell, p.win_y - new_wy + MAX_DELTA,
+                         p.win_x - new_wx + MAX_DELTA]) - _log(c.n_cell))
+    return (wsum > 1e-12, xy, _log(_take(wprob, widx)) - _log(c.n_cell),
+            back)
+
+
+def _data_transform(c: _Cells, p: _Picked, pid, u_cls, u_jit):
+    """Mark ``pid`` of the picked point resampled from its pixel
+    distribution (``u_cls`` (B, m)) with a uniform jitter in the class
+    (``u_jit``): (marks, log_fwd, log_back)."""
+    kd, lane = c.kd, c.ix.lane
+    row = p.rows[lane, c.ix.cell, pid]  # (B, m, C)
+    new_cls = _categorical(row, 1.0 - u_cls)
+    vmin, vmax = kd.map_vmin[lane, pid], kd.map_vmax[lane, pid]
+    value = (_class_to_value(vmin, vmax, c.n_classes, new_cls)
+             + u_jit * ((vmax - vmin) / c.n_classes))
+    return (c.smk.scatter(-1, pid[..., None], value[..., None]),
+            _log(_take(row, new_cls)) - _log(c.n_cell),
+            _log(_take(row, _take(p.cls, pid))) - _log(c.n_cell))
+
+
 def _cell_proposal(gens, state: PointsState, kd: KernelData,
                    view: MapView, ix: _Index, h: int, w: int,
                    y0: torch.Tensor, x0: torch.Tensor, free_slot: torch.Tensor,
@@ -185,33 +388,30 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
     ``split_merge`` the last three are None, and the draws are those of a
     chain that never had the pair: its variates are drawn after all
     others, and only when it is on."""
-    b, m = y0.shape
+    m = y0.shape[1]
     dev = state.xy.device
     k = state.capacity
-    lane, cell, mark3 = ix.lane, ix.cell, ix.mark3
-    by_cell = (lane[..., None, None], cell[..., None, None])
     vmin_l, vmax_l = kd.map_vmin[:, None, :], kd.map_vmax[:, None, :]
     cyc_l = kd.map_cyclic[:, None, :]
-
-    ylo, xlo = torch.clamp(y0, 0, h), torch.clamp(x0, 0, w)
-    yhi, xhi = torch.clamp(y0 + CELL, 0, h), torch.clamp(x0 + CELL, 0, w)
-    area = torch.clamp((yhi - ylo) * (xhi - xlo), min=0).float()
-    cell_ok = area > 0
-
-    px_all = state.xy[:, None, :, 0]
-    py_all = state.xy[:, None, :, 1]
-    in_cell = (state.alive[:, None, :]
-               & (px_all >= ylo[..., None]) & (px_all < yhi[..., None])
-               & (py_all >= xlo[..., None]) & (py_all < xhi[..., None]))
-    n_cell = in_cell.sum(dim=-1).float()
-    # uniform among the cell's points: argmax of masked uniform noise
-    pick = torch.argmax(torch.where(in_cell, _rand(gens, m, k, device=dev),
-                                    -1.0), dim=-1)
-    cell_slot = torch.where(n_cell > 0, pick, -1)
-    safe_slot = torch.clamp(cell_slot, min=0)
-    lam_cell = kd.intensity[:, None] * area / float(h * w)
-
+    # the variates, in the order the chain has always drawn them
+    u_pick = _rand(gens, m, k, device=dev)
     move_t = _rand(gens, m, device=dev)
+    u_pos = _rand(gens, m, device=dev)
+    u_jit = _rand(gens, m, 2, device=dev)
+    u_cls = _rand(gens, m, 3, device=dev)
+    u_mjit = _rand(gens, m, 3, device=dev)
+    z_trl = _randn(gens, m, 2, device=dev)
+    pid = _randint(gens, 0, 3, m, device=dev)
+    z_trf = _randn(gens, m, device=dev)
+    if data_moves:
+        sub_u = _rand(gens, m, 2, device=dev)
+        u_widx = _rand(gens, m, device=dev)
+        djit = _rand(gens, m, 3, device=dev)
+        u_dcls = _rand(gens, m, device=dev)
+
+    c = _Cells.make(state, kd, view, ix, h, w, y0, x0, free_slot, free_ok,
+                    u_pick)
+    p = _Picked.make(c)
     # with the split/merge pair the four base families take 0.2 each and
     # split and merge 0.1 each; only ratios of paired families enter the
     # Green ratios, so the base families' terms are unchanged
@@ -220,109 +420,18 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
     is_death = (move_t >= pb) & (move_t < 2 * pb)
     is_trl = (move_t >= 2 * pb) & (move_t < 3 * pb)
 
-    # ---- birth: position ~ cell window of the detection density
-    win = _windows(view.cell_density, by_cell[:1], y0 - view.row0_cd,
-                   x0 + CELL, ix.ar_cell)
-    win_sum = win.sum(dim=(-2, -1))
-    win_prob = win / (win_sum + EPS)[..., None, None]
-    flat_prob = win_prob.reshape(b, m, -1)
-    cell_idx = _categorical(flat_prob, 1.0 - _rand(gens, m, device=dev))
-    jitter = _rand(gens, m, 2, device=dev)
-    py = (y0 + cell_idx // CELL).float() + jitter[..., 0]
-    px = (x0 + cell_idx % CELL).float() + jitter[..., 1]
-    byi = torch.clamp(py.long(), 0, h - 1)
-    bxi = torch.clamp(px.long(), 0, w - 1)
-    n_rows_md = view.mark_dists.shape[-3]
-    byi_l = torch.clamp(byi - view.row0_md, 0, n_rows_md - 1)
-    log_q_pos = _log(_take(flat_prob, cell_idx)) + _log(area)
-    rows = view.mark_dists[lane[..., None], mark3, byi_l[..., None],
-                           bxi[..., None]]  # (B, m, 3, C)
-    n_classes = view.mark_dists.shape[-1]
-    cls = _categorical(rows, 1.0 - _rand(gens, m, 3, device=dev))
-    steps_b = (vmax_l - vmin_l) / n_classes
-    mjit = _rand(gens, m, 3, device=dev)
-    birth_marks = vmin_l + cls.float() * steps_b + mjit * steps_b
-    log_q_marks = _log(_take(rows, cls)).sum(dim=-1)
-    log_q_birth = log_q_pos + log_q_marks + 3 * math.log(float(n_classes))
-    birth_fwd = math.log(P_BIRTH) + log_q_birth - _log(lam_cell)
-    birth_back = math.log(P_DEATH) - _log(n_cell + 1.0)
-    birth_valid = win_sum > 1e-12
-
-    # ---- death: uniform among the cell's points
-    sxy = _rows(state.xy, safe_slot)
-    smk = _rows(state.marks, safe_slot)
-    death_fwd = math.log(P_DEATH) - _log(n_cell)
-    dyi = torch.clamp(sxy[..., 0].long(), 0, h - 1)
-    dxi = torch.clamp(sxy[..., 1].long(), 0, w - 1)
-    dyi_l = torch.clamp(dyi - view.row0_md, 0, n_rows_md - 1)
-    drows = view.mark_dists[lane[..., None], mark3, dyi_l[..., None],
-                            dxi[..., None]]  # (B, m, 3, C)
-    dcls = _value_to_class(vmin_l, vmax_l, cyc_l, n_classes, smk)
-    dwin_y = torch.clamp(dyi - y0, 0, CELL - 1)
-    dwin_x = torch.clamp(dxi - x0, 0, CELL - 1)
-    log_q_death = (_log(win_prob[lane, cell, dwin_y, dwin_x]) + _log(area)
-                   + _log(_take(drows, dcls)).sum(dim=-1)
-                   + 3 * math.log(float(n_classes)))
-    death_back = math.log(P_BIRTH) + log_q_death - _log(lam_cell)
-
-    # ---- gaussian translation, clipped to the cell
-    sigma_trl = kd.sigma_trl[:, None, None]
-    delta = sigma_trl * _randn(gens, m, 2, device=dev)
-    lo = torch.stack([ylo, xlo], dim=-1).float()
-    hi = torch.stack([yhi - 1, xhi - 1], dim=-1).float()
-    g_trl_xy = torch.minimum(torch.maximum(sxy + delta, lo), hi)
-    g_trl_logp = (math.log(P_TRL)
-                  + _normal_logpdf(delta, sigma_trl).sum(dim=-1)
-                  - _log(n_cell))
-
-    # ---- gaussian transform of one mark (cyclic wrap / clamp)
-    pid = _randint(gens, 0, 3, m, device=dev)
-    sigma = kd.sigma_trf[lane, pid]
-    mdelta = sigma * _randn(gens, m, device=dev)
-    old = _take(smk, pid)
-    vmin, vmax = kd.map_vmin[lane, pid], kd.map_vmax[lane, pid]
-    new_val = torch.where(
-        kd.map_cyclic[lane, pid], ((old + mdelta) % (vmax - vmin)) + vmin,
-        torch.minimum(torch.maximum(old + mdelta, vmin), vmax))
-    g_trf_marks = smk.scatter(-1, pid[..., None], new_val[..., None])
-    g_trf_logp = (math.log(P_TRF) + _normal_logpdf(mdelta, sigma)
-                  - _log(n_cell))
-
+    birth_ok, birth_xy, birth_marks, birth_fwd, birth_back = _birth(
+        c, u_pos, u_jit, u_cls, u_mjit)
+    death_fwd, death_back = _death(c, p)
+    g_trl_xy, g_trl_logp = _gauss_translation(c, z_trl)
+    g_trf_marks, g_trf_logp = _gauss_transform(c, pid, z_trf)
     if data_moves:
-        sub_u = _rand(gens, m, 2, device=dev)
         use_data_trl = sub_u[..., 0] < P_DATA_SUB
         use_data_trf = sub_u[..., 1] < P_DATA_SUB
-
-        # ---- data translation: resample the pixel from the WINDOW patch
-        # of the cell's density around the point (zero outside the cell)
-        win_pad = F.pad(win, (MAX_DELTA,) * 4)
-        wloc = _windows(win_pad, by_cell, dwin_y, dwin_x, ix.ar_window)
-        wsum = wloc.sum(dim=(-2, -1))
-        wprob = (wloc / (wsum + EPS)[..., None, None]).reshape(b, m, -1)
-        widx = _categorical(wprob, 1.0 - _rand(gens, m, device=dev))
-        new_wy = torch.clamp(dwin_y + widx // WINDOW - MAX_DELTA, 0, CELL - 1)
-        new_wx = torch.clamp(dwin_x + widx % WINDOW - MAX_DELTA, 0, CELL - 1)
-        djit = _rand(gens, m, 3, device=dev)
-        d_trl_xy = torch.stack([(y0 + new_wy).float() + djit[..., 0],
-                                (x0 + new_wx).float() + djit[..., 1]], dim=-1)
-        d_trl_fwd = _log(_take(wprob, widx)) - _log(n_cell)
-        wloc_b = _windows(win_pad, by_cell, new_wy, new_wx, ix.ar_window)
-        wprob_b = wloc_b / (wloc_b.sum(dim=(-2, -1)) + EPS)[..., None, None]
-        d_trl_back = (_log(wprob_b[lane, cell, dwin_y - new_wy + MAX_DELTA,
-                                   dwin_x - new_wx + MAX_DELTA])
-                      - _log(n_cell))
-        d_trl_valid = wsum > 1e-12
-
-        # ---- data transform: resample ONE mark from its pixel distribution
-        row_d = drows[lane, cell, pid]  # (B, m, C)
-        new_cls_d = _categorical(row_d, 1.0 - _rand(gens, m, device=dev))
-        step_d = (vmax - vmin) / n_classes
-        d_val = (_class_to_value(vmin, vmax, n_classes, new_cls_d)
-                 + djit[..., 2] * step_d)
-        d_trf_marks = smk.scatter(-1, pid[..., None], d_val[..., None])
-        d_trf_fwd = _log(_take(row_d, new_cls_d)) - _log(n_cell)
-        d_trf_back = _log(_take(row_d, _take(dcls, pid))) - _log(n_cell)
-
+        d_trl_valid, d_trl_xy, d_trl_fwd, d_trl_back = _data_translation(
+            c, p, u_widx, djit[..., :2])
+        d_trf_marks, d_trf_fwd, d_trf_back = _data_transform(
+            c, p, pid, u_dcls, djit[..., 2])
         pick_data_trl = use_data_trl & d_trl_valid
         trl_xy = torch.where(pick_data_trl[..., None], d_trl_xy, g_trl_xy)
         trl_fwd = torch.where(pick_data_trl, d_trl_fwd, g_trl_logp)
@@ -338,9 +447,9 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
         trl_ok = torch.ones_like(is_trl)
 
     # ---- assemble
-    birth_ok = cell_ok & free_ok & birth_valid
-    pick_ok = cell_slot >= 0
-    zero = torch.zeros_like(cell_slot)
+    sxy, smk, safe_slot = c.sxy, c.smk, c.safe_slot
+    pick_ok = c.pick_ok
+    zero = torch.zeros_like(safe_slot)
     kind = torch.where(
         is_birth, torch.where(birth_ok, 1, zero),
         torch.where(pick_ok,
@@ -348,7 +457,7 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
                                 torch.where(is_trl & ~trl_ok, 0, 3 + zero)),
                     zero))
     slot = torch.where(is_birth, free_slot, safe_slot)
-    xy = torch.where(is_birth[..., None], torch.stack([py, px], dim=-1),
+    xy = torch.where(is_birth[..., None], birth_xy,
                      torch.where((is_trl & ~is_death)[..., None], trl_xy,
                                  sxy))
     marks = torch.where(is_birth[..., None], birth_marks,
@@ -371,6 +480,7 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
     u_ang = _rand(gens, m, device=dev)
     z_shape = _randn(gens, m, 3, device=dev)
     nb_noise = _rand(gens, m, k, device=dev)
+    n_cell, lam_cell, lo, hi = c.n_cell, c.lam_cell, c.lo, c.hi
 
     def clip_marks(mk):
         wrapped = ((mk - vmin_l) % (vmax_l - vmin_l)) + vmin_l
@@ -395,8 +505,8 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
               - _log(lam_cell))
     # the reverse merge picks either child, then its sibling among the
     # cell's points within the merge radius (the parent left out)
-    others = in_cell & (torch.arange(k, device=dev)
-                        != safe_slot[..., None])
+    others = c.in_cell & (torch.arange(k, device=dev)
+                          != safe_slot[..., None])
     nn_a = (others & (torch.linalg.vector_norm(
         state.xy[:, None] - sp_xy_a[..., None, :], dim=-1)
         <= MERGE_RADIUS)).sum(dim=-1) + 1
@@ -405,7 +515,7 @@ def _cell_proposal(gens, state: PointsState, kd: KernelData,
         <= MERGE_RADIUS)).sum(dim=-1) + 1
     sp_back = log_sm + _log((1.0 / (n_cell + 1.0))
                             * (1.0 / nn_a + 1.0 / nn_b))
-    split_ok = pick_ok & free_ok & cell_ok
+    split_ok = pick_ok & free_ok & c.cell_ok
 
     nb_mask = others & (torch.linalg.vector_norm(
         state.xy[:, None] - sxy[..., None, :], dim=-1) <= MERGE_RADIUS)
@@ -469,142 +579,54 @@ def _cell_proposal_switched(gens, types, state: PointsState, kd: KernelData,
     of variates, so lane b draws the same numbers whatever the other
     lanes' types. Returns the 9 fields of ``_cell_proposal`` (no
     split/merge: the last three are None)."""
-    b, m = y0.shape
+    m = y0.shape[1]
     dev = state.xy.device
-    k = state.capacity
-    lane, cell, mark3 = ix.lane, ix.cell, ix.mark3
-    vmin_l, vmax_l = kd.map_vmin[:, None, :], kd.map_vmax[:, None, :]
-
-    ylo, xlo = torch.clamp(y0, 0, h), torch.clamp(x0, 0, w)
-    yhi, xhi = torch.clamp(y0 + CELL, 0, h), torch.clamp(x0 + CELL, 0, w)
-    area = torch.clamp((yhi - ylo) * (xhi - xlo), min=0).float()
-    cell_ok = area > 0
-    px_all = state.xy[:, None, :, 0]
-    py_all = state.xy[:, None, :, 1]
-    in_cell = (state.alive[:, None, :]
-               & (px_all >= ylo[..., None]) & (px_all < yhi[..., None])
-               & (py_all >= xlo[..., None]) & (py_all < xhi[..., None]))
-    n_cell = in_cell.sum(dim=-1).float()
-    pick = torch.argmax(torch.where(in_cell, _rand(gens, m, k, device=dev),
-                                    -1.0), dim=-1)
-    pick_ok = n_cell > 0
-    safe_slot = torch.where(pick_ok, pick, 0)
-    lam_cell = kd.intensity[:, None] * area / float(h * w)
-    win = _windows(view.cell_density, (lane[..., None, None],),
-                   y0 - view.row0_cd, x0 + CELL, ix.ar_cell)
-    win_sum = win.sum(dim=(-2, -1))
-    win_prob = win / (win_sum + EPS)[..., None, None]
-    n_classes = view.mark_dists.shape[-1]
-    n_rows_md = view.mark_dists.shape[-3]
-    cur_xy = _rows(state.xy, safe_slot)
-    cur_marks = _rows(state.marks, safe_slot)
+    u_pick = _rand(gens, m, state.capacity, device=dev)
     # the shared variates: at most 9 uniforms, 2 normals and a mark index
     u = _rand(gens, m, 9, device=dev)
     z = _randn(gens, m, 2, device=dev)
     pid = _randint(gens, 0, 3, m, device=dev)
-    zero = torch.zeros_like(safe_slot)
-    log_c3 = 3 * math.log(float(n_classes))
+    c = _Cells.make(state, kd, view, ix, h, w, y0, x0, free_slot, free_ok,
+                    u_pick)
+    picked = []
 
-    def point_pixel():
-        dyi = torch.clamp(cur_xy[..., 0].long(), 0, h - 1)
-        dxi = torch.clamp(cur_xy[..., 1].long(), 0, w - 1)
-        return dyi, dxi, torch.clamp(dyi - view.row0_md, 0, n_rows_md - 1)
+    def point() -> _Picked:  # built once, and only for the types needing it
+        if not picked:
+            picked.append(_Picked.make(c))
+        return picked[0]
+
+    zero = torch.zeros_like(c.safe_slot)
+    slot, sxy, smk = c.safe_slot, c.sxy, c.smk
+
+    def moved(ok):
+        return torch.where(c.pick_ok & ok, 3, zero)
 
     def birth():
-        flat = win_prob.reshape(b, m, -1)
-        cell_idx = _categorical(flat, 1.0 - u[..., 0])
-        py = (y0 + cell_idx // CELL).float() + u[..., 1]
-        px = (x0 + cell_idx % CELL).float() + u[..., 2]
-        byi = torch.clamp(py.long(), 0, h - 1)
-        bxi = torch.clamp(px.long(), 0, w - 1)
-        byi_l = torch.clamp(byi - view.row0_md, 0, n_rows_md - 1)
-        rows = view.mark_dists[lane[..., None], mark3, byi_l[..., None],
-                               bxi[..., None]]
-        cls = _categorical(rows, 1.0 - u[..., 6:9])
-        steps_b = (vmax_l - vmin_l) / n_classes
-        marks = vmin_l + cls.float() * steps_b + u[..., 3:6] * steps_b
-        log_q = (_log(_take(flat, cell_idx)) + _log(area)
-                 + _log(_take(rows, cls)).sum(dim=-1) + log_c3)
-        ok = cell_ok & free_ok & (win_sum > 1e-12)
-        return (torch.where(ok, 1, zero), free_slot,
-                torch.stack([py, px], dim=-1), marks,
-                math.log(P_BIRTH) + log_q - _log(lam_cell),
-                math.log(P_DEATH) - _log(n_cell + 1.0))
+        ok, xy, marks, fwd, back = _birth(c, u[..., 0], u[..., 1:3],
+                                          u[..., 6:9], u[..., 3:6])
+        return torch.where(ok, 1, zero), free_slot, xy, marks, fwd, back
 
     def death():
-        dyi, dxi, dyi_l = point_pixel()
-        drows = view.mark_dists[lane[..., None], mark3, dyi_l[..., None],
-                                dxi[..., None]]
-        dcls = _value_to_class(vmin_l, vmax_l, kd.map_cyclic[:, None, :],
-                               n_classes, cur_marks)
-        dwin_y = torch.clamp(dyi - y0, 0, CELL - 1)
-        dwin_x = torch.clamp(dxi - x0, 0, CELL - 1)
-        log_q = (_log(win_prob[lane, cell, dwin_y, dwin_x]) + _log(area)
-                 + _log(_take(drows, dcls)).sum(dim=-1) + log_c3)
-        return (torch.where(pick_ok, 2, zero), safe_slot, cur_xy, cur_marks,
-                math.log(P_DEATH) - _log(n_cell),
-                math.log(P_BIRTH) + log_q - _log(lam_cell))
+        fwd, back = _death(c, point())
+        return torch.where(c.pick_ok, 2, zero), slot, sxy, smk, fwd, back
 
     def gauss_trl():
-        sigma_trl = kd.sigma_trl[:, None, None]
-        delta = sigma_trl * z
-        lo = torch.stack([ylo, xlo], dim=-1).float()
-        hi = torch.stack([yhi - 1, xhi - 1], dim=-1).float()
-        xy = torch.minimum(torch.maximum(cur_xy + delta, lo), hi)
-        logp = (_normal_logpdf(delta, sigma_trl).sum(dim=-1)
-                - _log(n_cell))
-        return (torch.where(pick_ok, 3, zero), safe_slot, xy, cur_marks,
-                logp, logp)
+        xy, logp = _gauss_translation(c, z)
+        return moved(True), slot, xy, smk, logp, logp
 
     def data_trl():
-        dyi, dxi, _ = point_pixel()
-        dwin_y = torch.clamp(dyi - y0, 0, CELL - 1)
-        dwin_x = torch.clamp(dxi - x0, 0, CELL - 1)
-        win_pad = F.pad(win, (MAX_DELTA,) * 4)
-        by_cell = (lane[..., None, None], cell[..., None, None])
-        wloc = _windows(win_pad, by_cell, dwin_y, dwin_x, ix.ar_window)
-        wsum = wloc.sum(dim=(-2, -1))
-        wprob = (wloc / (wsum + EPS)[..., None, None]).reshape(b, m, -1)
-        widx = _categorical(wprob, 1.0 - u[..., 0])
-        new_wy = torch.clamp(dwin_y + widx // WINDOW - MAX_DELTA, 0,
-                             CELL - 1)
-        new_wx = torch.clamp(dwin_x + widx % WINDOW - MAX_DELTA, 0,
-                             CELL - 1)
-        xy = torch.stack([(y0 + new_wy).float() + u[..., 1],
-                          (x0 + new_wx).float() + u[..., 2]], dim=-1)
-        wloc_b = _windows(win_pad, by_cell, new_wy, new_wx, ix.ar_window)
-        wprob_b = wloc_b / (wloc_b.sum(dim=(-2, -1)) + EPS)[..., None, None]
-        back = (_log(wprob_b[lane, cell, dwin_y - new_wy + MAX_DELTA,
-                             dwin_x - new_wx + MAX_DELTA]) - _log(n_cell))
-        return (torch.where(pick_ok & (wsum > 1e-12), 3, zero), safe_slot,
-                xy, cur_marks, _log(_take(wprob, widx)) - _log(n_cell), back)
+        ok, xy, fwd, back = _data_translation(c, point(), u[..., 0],
+                                              u[..., 1:3])
+        return moved(ok), slot, xy, smk, fwd, back
 
     def gauss_trf():
-        sigma = kd.sigma_trf[lane, pid]
-        mdelta = sigma * z[..., 0]
-        old = _take(cur_marks, pid)
-        vmin, vmax = kd.map_vmin[lane, pid], kd.map_vmax[lane, pid]
-        new_val = torch.where(
-            kd.map_cyclic[lane, pid], ((old + mdelta) % (vmax - vmin)) + vmin,
-            torch.minimum(torch.maximum(old + mdelta, vmin), vmax))
-        logp = _normal_logpdf(mdelta, sigma) - _log(n_cell)
-        return (torch.where(pick_ok, 3, zero), safe_slot, cur_xy,
-                cur_marks.scatter(-1, pid[..., None], new_val[..., None]),
-                logp, logp)
+        marks, logp = _gauss_transform(c, pid, z[..., 0])
+        return moved(True), slot, sxy, marks, logp, logp
 
     def data_trf():
-        _, dxi, dyi_l = point_pixel()
-        row = view.mark_dists[lane, pid, dyi_l, dxi]  # (B, m, C)
-        new_cls = _categorical(row, 1.0 - u[..., 0])
-        vmin, vmax = kd.map_vmin[lane, pid], kd.map_vmax[lane, pid]
-        new_val = (_class_to_value(vmin, vmax, n_classes, new_cls)
-                   + u[..., 1] * (vmax - vmin) / n_classes)
-        old_cls = _value_to_class(vmin, vmax, kd.map_cyclic[lane, pid],
-                                  n_classes, _take(cur_marks, pid))
-        return (torch.where(pick_ok, 3, zero), safe_slot, cur_xy,
-                cur_marks.scatter(-1, pid[..., None], new_val[..., None]),
-                _log(_take(row, new_cls)) - _log(n_cell),
-                _log(_take(row, old_cls)) - _log(n_cell))
+        marks, fwd, back = _data_transform(c, point(), pid, u[..., 0],
+                                           u[..., 1])
+        return moved(True), slot, sxy, marks, fwd, back
 
     branches = (birth, death, gauss_trl, data_trl, gauss_trf, data_trf)
     built = {t: branches[t]() for t in sorted(set(types))}
@@ -614,7 +636,7 @@ def _cell_proposal_switched(gens, types, state: PointsState, kd: KernelData,
         out = tuple(torch.cat([built[t][f][i:i + 1]
                                for i, t in enumerate(types)])
                     for f in range(6))
-    kind = torch.where(cell_ok, out[0], 0)
+    kind = torch.where(c.cell_ok, out[0], 0)
     return (kind,) + tuple(out[1:]) + (None, None, None)
 
 

@@ -586,8 +586,8 @@ def _keep_last_samples(kept: PointsState, n_kept: int, new: PointsState,
 
 
 def tile_lanes(patches: List[ImageWMaps], setup: EnergySetup,
-                 capacity: int, init: str, kernel_weights,
-                 use_split_merge: bool, device: torch.device):
+               capacity: int, init: str, use_split_merge: bool,
+               device: torch.device):
     """The tiles as lanes: stacked energy maps, kernel data and initial
     states (naive detection, GT or empty, at most ``capacity`` points;
     each tile's intensity is its initial point count)."""
@@ -605,7 +605,7 @@ def tile_lanes(patches: List[ImageWMaps], setup: EnergySetup,
     maps = stack_lanes(lambda i: setup.make_maps(patches[i]), n)
     kd = stack_lanes(lambda i: setup.make_kernel_data(
         patches[i], intensity=max(1, len(inits[i][0])),
-        kernel_weights=kernel_weights, use_split_merge=use_split_merge), n)
+        use_split_merge=use_split_merge), n)
     state = stack_lanes(lambda i: state_from_arrays(
         *inits[i], capacity=capacity, device=device), n)
     return maps, kd, state
@@ -615,8 +615,7 @@ def run_tiled_scene(data: ImageWMaps, setup: EnergySetup,
                     comb: EnergyCombiner, params: RJMCMCParams,
                     seed: int = 0, patch_size: int = 256,
                     min_overlap: int = 32, capacity: int = 256,
-                    init: str = "naive", kernel_weights=None,
-                    use_split_merge: bool = False,
+                    init: str = "naive", use_split_merge: bool = False,
                     sampler: str = "sequential",
                     checkpoint_path: Optional[str] = None,
                     segment_size: int = 4096,
@@ -657,7 +656,7 @@ def run_tiled_scene(data: ImageWMaps, setup: EnergySetup,
     patches = split_image(data, patch_size, min_overlap)
     n_tiles = len(patches)
     maps, kd, state = tile_lanes(patches, setup, capacity, init,
-                                   kernel_weights, use_split_merge, device)
+                                 use_split_merge, device)
     spec = setup.spec
     alpha = params.resolved_alpha()
     t_target = params.resolved_t_target()

@@ -50,16 +50,18 @@ PATCH, N_TILES = 96, 4
 # the depth cut: 64 burn-in moves + 2 intervals of 16 in segments of 40
 BURN_IN, INTERVAL, SEGMENT = 64, 16, 40
 TOTAL = BURN_IN + 2 * INTERVAL
-# the tiles' final states through both packages' merge, rescore, polish and
-# export: float32 papangelou scores and polished positions in another
-# evaluation order (coordinates print at 0.1 px)
+# the tiles' final states through both packages' merge, rescore and
+# export: float32 papangelou scores in another evaluation order
+# (coordinates print at 0.1 px)
 DET_ATOL = 1e-4
-# polish steps of the one-chain comparison: Adam steps along the sign of a
-# near-zero gradient, so float noise there moves a mark by a whole step and
-# the two packages' polish parts after a few steps (0.04 in a mark at step
-# 5 on this scene, gradients equal to 1e-6); 2 steps hold the export to
-# DET_ATOL
-POLISH_STEPS = 2
+# the polish (60 Adam steps in mpp_r4p) parts float noise: Adam's first
+# steps move a coordinate by a whole learning rate along the SIGN of its
+# gradient, and some gradients sit at float-noise size, so a 1-ulp nudge of
+# the polish input moves the JAX package's own output by a few 0.01 in a
+# mark after one step. The polished output is held to the spread of the
+# JAX package's polish of its own input nudged by 1 ulp (NUDGES seeds),
+# widened by SPREAD_FACTOR.
+NUDGES, SPREAD_FACTOR = 3, 2.0
 # the one chain function of both packages: a fixed shift per segment
 SHIFT = (0.25, -0.35)
 TILED_CONFIGS = ("config_mpp_log", "mpp_log_quick", "mpp_hrcM", "mpp_quick",
@@ -209,12 +211,26 @@ def test_tiled_cli_runs(workspaces, monkeypatch):
             assert np.isfinite(m["vehicle"]["ap"])
 
 
+def _shifted_j(st, maps):
+    """The one chain function of both packages: every point moved by
+    ``SHIFT``, clipped to the maps (JAX)."""
+    h, w = maps.position.shape
+    return st.replace(xy=jnp.clip(st.xy + jnp.asarray(SHIFT), 0.0,
+                                  jnp.asarray([h - 1.0, w - 1.0])))
+
+
+def _shifted_t(st, maps):
+    """``_shifted_j`` on the port's laned state."""
+    h, w = maps.position.shape[-2:]
+    hi = torch.tensor([h - 1.0, w - 1.0])
+    return st.replace(xy=torch.minimum(torch.clamp(
+        st.xy + torch.tensor(SHIFT), min=0.0), hi))
+
+
 def _fake_chain_j(key, st, maps, spec, comb, kd, n_steps, t0=1.0,
                   alpha_t=0.999, t_target=0.0, n_samples=0,
                   samples_interval=1, burn_in=0, step_offset=0):
-    h, w = maps.position.shape
-    final = st.replace(xy=jnp.clip(st.xy + jnp.asarray(SHIFT), 0.0,
-                                   jnp.asarray([h - 1.0, w - 1.0])))
+    final = _shifted_j(st, maps)
     stats = jrj.ChainStats(
         accepted=jnp.zeros(8), proposed=jnp.zeros(8),
         final_energy=jnp.float32(0.0), final_n_points=final.n_points,
@@ -227,10 +243,7 @@ def _fake_chain_j(key, st, maps, spec, comb, kd, n_steps, t0=1.0,
 def _fake_chain_t(gen, st, maps, spec, comb, kd, n_steps, t0=1.0,
                   alpha_t=0.999, t_target=0.0, n_samples=0,
                   samples_interval=1, burn_in=0, step_offset=0):
-    h, w = maps.position.shape[-2:]
-    hi = torch.tensor([h - 1.0, w - 1.0])
-    final = st.replace(xy=torch.minimum(torch.clamp(
-        st.xy + torch.tensor(SHIFT), min=0.0), hi))
+    final = _shifted_t(st, maps)
     stats = trj.ChainStats(
         accepted=torch.zeros(1, 8), proposed=torch.zeros(1, 8),
         final_energy=torch.zeros(st.xy.shape[0]),
@@ -242,25 +255,91 @@ def _fake_chain_t(gen, st, maps, spec, comb, kd, n_steps, t0=1.0,
     return final, stats, samples, 1
 
 
+def _det_rows(text):
+    """The DOTA detection lines of ``text`` by image: {image: (n, 9)
+    float array of score and polygon}."""
+    rows = {}
+    for ln in text.splitlines():
+        f = ln.split()
+        rows.setdefault(f[0], []).append([float(v) for v in f[1:]])
+    return {k: np.array(v) for k, v in rows.items()}
+
+
+def _matched(a, b):
+    """``b``'s rows in the order of ``a``'s: nearest polygon centers
+    (one-to-one)."""
+    from scipy.optimize import linear_sum_assignment
+
+    ca = a[:, 1:].reshape(-1, 4, 2).mean(1)
+    cb = b[:, 1:].reshape(-1, 4, 2).mean(1)
+    cost = ((ca[:, None] - cb[None]) ** 2).sum(-1)
+    ia, ib = linear_sum_assignment(cost)
+    return b[ib[np.argsort(ia)]]
+
+
+def _nudged_polish(polish, seed):
+    """``polish`` of its input moved by 1 ulp (up or down at random) in
+    every live coordinate and mark."""
+    def nudged(state, *a, **k):
+        rng = np.random.default_rng(seed)
+        alive = np.asarray(state.alive)[:, None]
+
+        def nudge(x):
+            x = np.asarray(x)
+            to = np.where(rng.uniform(size=x.shape) < 0.5, -np.inf, np.inf)
+            return jnp.asarray(np.where(alive, np.nextafter(
+                x, to.astype(x.dtype)), x))
+
+        return polish(state.replace(xy=nudge(state.xy),
+                                    marks=nudge(state.marks)), *a, **k)
+
+    return nudged
+
+
 def test_one_chain_gives_the_same_dota_files(workspaces, monkeypatch):
-    """A depth-cut ``mpp_r4p`` (tiled, polish, refine, score blend,
-    backfill) through both packages' ``MPPModel.infer`` with one chain
-    function: the same calibration and naive init, the same tiles' last
-    samples, merge, global rescore and polish, and the same DOTA files
-    (the GT and image sets byte for byte, detection lines to
-    ``DET_ATOL``)."""
+    """A depth-cut ``mpp_r4p`` (tiled, its 60 polish steps, refine, score
+    blend, backfill) through both packages' ``MPPModel.infer`` with one
+    chain function: the same calibration and naive init, the same tiles'
+    last samples and merge (the polish inputs to ``DET_ATOL``), and the
+    same DOTA ground truth and image sets byte for byte. The polish and
+    what follows it (the detection lines, the polished energy) are held
+    to the JAX package's own spread under 1-ulp nudges of the polish
+    input, which is asserted to exceed ``DET_ATOL``."""
+    from mpp_cnn_rs_object_detection_tpu.mpp import polish as jpol
+
     ws_j, ws_t = workspaces
-    cfg = _config("mpp_r4p", "mpp_one_chain", polish_steps=POLISH_STEPS)
+    cfg = _config("mpp_r4p", "mpp_one_chain")
+    assert cfg["inference"]["polish_steps"] == 60
     monkeypatch.setattr(jsc, "run_chain", _fake_chain_j)
     monkeypatch.setattr(tsc, "run_chain", _fake_chain_t)
-    with tw.inside(ws_j):
-        jmm.MPPModel(json.loads(json.dumps(cfg)), load=True).infer("val")
+    calls = {"jax": [], "port": []}
+
+    def spy(polish, into):
+        def run(state, *a, **k):
+            out = polish(state, *a, **k)
+            into.append((state, a, k, out[1][1]))
+            return out
+        return run
+
+    def infer_jax(polish, into):
+        with monkeypatch.context() as m:
+            m.setattr(jpol, "polish_state", spy(polish, into))
+            with tw.inside(ws_j):
+                jmm.MPPModel(json.loads(json.dumps(cfg)),
+                             load=True).infer("val")
+        return dota_snapshot(str(_results_dir(ws_j, "mpp_one_chain")))
+
+    snaps = [infer_jax(jpol.polish_state, calls["jax"])]
+    for k in range(NUDGES):
+        snaps.append(infer_jax(_nudged_polish(jpol.polish_state, k), []))
+    snap_j = snaps[0]
+    monkeypatch.setattr(tsc, "polish_state",
+                        spy(tsc.polish_state, calls["port"]))
     with tw.inside(ws_t):
         port = tmm.MPPModel(json.loads(json.dumps(cfg)), load=True,
                             device="cpu")
         port.infer("val")
-    rj = _results_dir(ws_j, "mpp_one_chain")
-    rt = _results_dir(ws_t, "mpp_one_chain")
+    snap_t = dota_snapshot(str(_results_dir(ws_t, "mpp_one_chain")))
     assert (json.loads((ws_t / "models" / "mpp" / "mpp_one_chain"
                         / "calibration.json").read_text())
             == json.loads((ws_j / "models" / "mpp" / "mpp_one_chain"
@@ -268,25 +347,45 @@ def test_one_chain_gives_the_same_dota_files(workspaces, monkeypatch):
     for r in port.results.values():
         assert r.n_tiles == N_TILES and r.samples == 3  # one per segment
         assert r.polish_energies[1] <= r.polish_energies[0]
-    snap_j, snap_t = dota_snapshot(str(rj)), dota_snapshot(str(rt))
-    assert snap_t.keys() == snap_j.keys()
-    for key in snap_j:
-        if key.endswith(os.path.join("det", "vehicle.txt")):
-            # in image and coordinate order: points of tied scores (float
-            # noise in the last bit) merge and print in either order
-            def lines(text):
-                rows = [ln.split() for ln in text.splitlines()]
-                return sorted(rows, key=lambda r: (r[0], r[2:]))
+    # the polish inputs: the merged scene, equal as sets of points
+    assert len(calls["port"]) == len(calls["jax"]) == N_IMAGES
+    for (sj, *_), (st, *_) in zip(calls["jax"], calls["port"]):
+        def points(xy, marks, alive):
+            p = np.concatenate([np.asarray(xy), np.asarray(marks)],
+                               1)[np.asarray(alive)]
+            return p[np.lexsort(p.T[::-1])]
 
-            lj, lt = lines(snap_j[key]), lines(snap_t[key])
-            assert len(lj) == len(lt) > 0
-            for a, b in zip(lj, lt):
-                assert a[0] == b[0]
-                np.testing.assert_allclose(np.array(b[1:], float),
-                                           np.array(a[1:], float),
-                                           atol=DET_ATOL, rtol=DET_ATOL)
-        else:
+        pj, pt = points(sj.xy, sj.marks, sj.alive), points(st.xy, st.marks,
+                                                          st.alive)
+        assert pj.shape == pt.shape
+        np.testing.assert_allclose(pt, pj, atol=DET_ATOL)
+    assert snap_t.keys() == snap_j.keys()
+    spread = 0.0
+    for key in snap_j:
+        if not key.endswith(os.path.join("det", "vehicle.txt")):
             assert snap_t[key] == snap_j[key], key
+            continue
+        rows_j, rows_t = _det_rows(snap_j[key]), _det_rows(snap_t[key])
+        assert rows_t.keys() == rows_j.keys() and rows_j
+        # the JAX package's own spread under nudges, then the port in it
+        for image, a in rows_j.items():
+            for snap in snaps[1:]:
+                b = _det_rows(snap[key])[image]
+                assert b.shape == a.shape
+                spread = max(spread, np.abs(_matched(a, b) - a).max())
+        for image, a in rows_j.items():
+            assert rows_t[image].shape == a.shape
+            np.testing.assert_allclose(
+                _matched(a, rows_t[image]), a,
+                atol=SPREAD_FACTOR * spread + DET_ATOL, rtol=0, err_msg=key)
+    assert spread > DET_ATOL  # the witness: the polish parts float noise
+    # the polished energy, against the JAX package's spread over the same
+    # nudges of the same input
+    for (sj, args, kw, uj), (*_, ut) in zip(calls["jax"], calls["port"]):
+        width = max(abs(float(_nudged_polish(jpol.polish_state, k)(
+            sj, *args, **kw)[1][1]) - float(uj)) for k in range(NUDGES))
+        assert width > 0
+        assert abs(float(ut) - float(uj)) <= SPREAD_FACTOR * width + 1e-5
 
 
 def _scene_inputs(ws, pkg):
@@ -349,3 +448,76 @@ def test_resume_replays_and_ignores_the_jax_checkpoint(workspaces,
     for f in ("centers", "marks", "scores"):
         np.testing.assert_array_equal(getattr(other, f), getattr(whole, f),
                                       err_msg=f)
+
+
+def test_parallel_sampler_schedule_and_resume(workspaces, monkeypatch,
+                                              tmp_path):
+    """``sampler="parallel"``: with one stand-in for the cell-parallel
+    chain in both packages (JAX's ``run_parallel_chain``, the port's
+    ``run_exact_scene_chain``), the budget in supersteps, the segments,
+    the threaded temperature, the per-superstep cooling and the move flags
+    each segment is given equal the JAX package's, and so do the
+    detections (no samples: each tile keeps its final state). With the
+    port's own chain, a scene killed after its first segment resumes to
+    the uninterrupted run's detections, exactly."""
+    from mpp_cnn_rs_object_detection_tpu.mpp import parallel_sampler as jps
+
+    ws_j, ws_t = workspaces
+    moves = dict(data_moves=False, move_switch=True, split_merge=False)
+    calls = {"jax": [], "port": []}
+
+    def fake_j(key, st, maps, spec, comb, kd, n_supersteps, t0=1.0,
+               alpha_t=0.999, t_target=0.0, **flags):
+        calls["jax"].append((n_supersteps, t0, alpha_t, t_target, flags))
+        final = _shifted_j(st, maps)
+        return final, jrj.ChainStats(
+            accepted=jnp.zeros(8), proposed=jnp.zeros(8),
+            final_energy=jnp.float32(0.0), final_n_points=final.n_points,
+            final_temperature=jnp.float32(t0))
+
+    def fake_t(gens, st, maps, spec, comb, kd, n_supersteps, t0=1.0,
+               alpha_t=0.999, t_target=0.0, **flags):
+        assert len(gens) == N_TILES
+        calls["port"].append((n_supersteps, t0, alpha_t, t_target, flags))
+        return _shifted_t(st, maps), None, None
+
+    monkeypatch.setattr(jps, "run_parallel_chain", fake_j)
+    monkeypatch.setattr(tsc, "run_exact_scene_chain", fake_t)
+    kw = dict(seed=0, patch_size=PATCH, capacity=32, segment_size=SEGMENT,
+              sampler="parallel", **moves)
+    want = jsc.run_mpp_on_scene(*_scene_inputs(
+        ws_j, (jid, jes, jcomb, jrj)), **kw)
+    got = tsc.run_tiled_scene(*_scene_inputs(ws_t, (tid, tes, tcomb, trj)),
+                              device="cpu", **kw)
+    # 96 px tiles: (96 // 64 + 1) ** 2 // 2 = 2 moves per superstep
+    assert [c[0] for c in calls["port"]] == [20, 20, 8]
+    assert len(calls["port"]) == len(calls["jax"])
+    for p, j in zip(calls["port"], calls["jax"]):
+        assert p[0] == j[0] and p[4] == j[4]
+        np.testing.assert_allclose(p[1:4], j[1:4], rtol=1e-12)
+    assert got.samples == 0 and got.planned_supersteps == 48
+
+    def rows(r):  # in coordinate order: tied scores merge in either order
+        x = np.concatenate([r.centers, r.marks, r.scores[:, None]], 1)
+        return x[np.lexsort(np.round(x[:, :2], 3).T[::-1])]
+
+    assert len(got.centers) == len(want.centers) > 0
+    np.testing.assert_allclose(rows(got), rows(want), atol=DET_ATOL,
+                               rtol=DET_ATOL)
+    monkeypatch.undo()
+    kw = dict(kw, device="cpu", segment_size=2 * 4)
+
+    def run(**extra):
+        return tsc.run_tiled_scene(*_scene_inputs(ws_t, (tid, tes, tcomb,
+                                                        trj)), **kw, **extra)
+
+    whole = run()
+    ck = str(tmp_path / "0000_tiles.ck.npz")
+    assert run(checkpoint_path=ck, max_segments=1) is None
+    assert os.path.exists(ck)
+    resumed = run(checkpoint_path=ck)
+    assert not os.path.exists(ck) and resumed.supersteps == 48
+    assert len(whole.centers) > 0
+    for f in ("centers", "marks", "scores"):
+        np.testing.assert_array_equal(getattr(resumed, f),
+                                      getattr(whole, f), err_msg=f)
