@@ -82,9 +82,27 @@ Phases (each prints one line with its seconds; any failure raises):
      then on phase 3's scene with the flagship's model one in-memory
      segment with the split/merge pair and one with the switched move
      type (their energies against a rebuild; splits and merges accepted),
-     and the launches and device ms of one superstep with each move set.
+     and the launches and device ms of one superstep with each move set;
+  13. CNN training on the device-resident patch pipeline at full width
+     (U-Net [32, 64, 128, 256], bf16 convolutions, patches of 128^2,
+     batches of 64, 208 objects per patch, copy-paste): a synthetic
+     dataset of ``CNN_TRAIN_SCENES`` train and ``CLI_SCENES`` val scenes of
+     ``CNN_SCENE``^2 with about ``CNN_OBJECTS`` objects each (``--seed``);
+     copies of ``CNN_CONFIGS`` cut to ``CNN_CUT`` (the depth cut: 1,024 of
+     16,384 patches, so 16 steps per epoch, 256 val patches, 3 of 136
+     epochs, the train stack regenerated once, after epoch 1). ``-p train
+     -m posnet``, then the same config at 4 epochs with ``-r`` (it resumes
+     at epoch 3 with adam's count at 48), then ``-p train -m shapenet``;
+     finite losses, the last epoch's mean train loss below the first's;
+     one step on the card against the same step on the CPU (float32 copies
+     of the trained state, TF32 off, the same batch and variates); one
+     profiled step (launches, device ms, wall ms, the device's idle share,
+     peak memory, MFU; adam's launches and the augmentation and targets'
+     alone); then ``-p infer -m posnet`` on the val scenes with the trained
+     model: one detection-map launch per scene, and one launch held
+     against its plain version.
 Then one JSON line per kernel table (its launches: every path's, each
-counted from 0 -- phases 3, 6 and 9; the others reuse CNN results), the
+counted from 0 -- phases 3, 6, 9 and 13; the others reuse CNN results), the
 card's name and power limit, and the result line ``{"ok": true, "device":
 {...}}`` last.
 """
@@ -144,6 +162,16 @@ RTOL, ATOL = 1e-5, 1e-5
 # against different slot subsets
 CACHE_TOL = 1e-4
 H100_BYTES_PER_S = 3.35e12
+H100_BF16_FLOPS = 989e12
+# phase 13: CNN training, depth-cut copies of the trained configs
+CNN_CONFIGS = {"posnet": "pos_r2cp", "shapenet": "shape_r5ls"}
+CNN_CUT = {"n_patches": 1024, "val_patches": 256, "n_epochs": 3,
+           "dataset_update_interval": 1}
+CNN_TRAIN_SCENES, CNN_SCENE, CNN_OBJECTS = 8, 512, 100
+# one float32 train step on the card against the CPU: the loss terms, and
+# the parameters after one adam step of at most the learning rate (1e-3);
+# the biases BatchNorm re-centres follow float noise, up to two steps
+STEP_RTOL, STEP_PARAM_TOL, STEP_NOISE_TOL = 1e-4, 1e-4, 2e-3
 # ~50 ms of the card's clock: longer than the host takes to queue a timed
 # run of calls
 SLEEP_CYCLES = 100_000_000
@@ -628,9 +656,10 @@ def restarts_phase(root: str, device) -> None:
           f"{ap_line(model, aps)}", flush=True)
 
 
-def profiled(fn):
+def profiled(fn, top: int = 0):
     """One call of ``fn`` under ``torch.profiler``: (device kernel
-    launches, device ms)."""
+    launches, device ms), and with ``top`` the ``top`` kernels by device
+    time as (name, launches, ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -648,8 +677,13 @@ def profiled(fn):
 
     kernels = [e for e in prof.key_averages() if device_us(e) > 0
                and "cuda" in str(e.device_type).lower()]
-    return (sum(int(e.count) for e in kernels),
-            sum(device_us(e) for e in kernels) / 1e3)
+    totals = (sum(int(e.count) for e in kernels),
+              sum(device_us(e) for e in kernels) / 1e3)
+    if not top:
+        return totals
+    kernels.sort(key=device_us, reverse=True)
+    return totals + ([(e.key[:90], int(e.count), device_us(e) / 1e3)
+                      for e in kernels[:top]],)
 
 
 def train_batch_probe(model, device, seed: int) -> dict:
@@ -1165,6 +1199,294 @@ def lane_phase(inference, data, seed: int) -> None:
           f"{CHAIN_ENERGY_RTOL:.0%}", flush=True)
 
 
+def cnn_workspace(root: str, seed: int) -> dict:
+    """Phase 13's dataset and depth-cut config copies under ``root`` (whose
+    ``paths_config.json`` phase 6 wrote); returns {kind: config}."""
+    from mpp_cnn_rs_object_detection_torch.data.synth import (
+        make_synth_dataset,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import REPO_ROOT
+
+    data = os.path.join(root, "data")
+    # make_synth_dataset writes as many val scenes as train scenes: keep
+    # the first CLI_SCENES
+    make_synth_dataset(name="synth_cnn", n_items=CNN_TRAIN_SCENES,
+                       shape=(CNN_SCENE, CNN_SCENE),
+                       n_rect=CNN_OBJECTS + CNN_OBJECTS // 20, seed=seed,
+                       base_dir=data)
+    val = os.path.join(data, "synth_cnn", "val")
+    for sub, ext in (("images", "png"), ("annotations", "pkl"),
+                     ("metadata", "json")):
+        for i in range(CLI_SCENES, CNN_TRAIN_SCENES):
+            os.remove(os.path.join(val, sub, f"{i:04}.{ext}"))
+    configs = {}
+    for kind, base in CNN_CONFIGS.items():
+        with open(os.path.join(REPO_ROOT, "model_configs", kind,
+                               base + ".json")) as f:
+            cfg = json.load(f)
+        cfg["model_name"] = f"{base}_smoke"
+        dl = cfg["data_loader"]
+        dl["dataset"] = "synth_cnn"
+        dl["dataset_update_interval"] = CNN_CUT["dataset_update_interval"]
+        dl["patch_maker_params"].update(n_patches=CNN_CUT["n_patches"],
+                                        val_patches=CNN_CUT["val_patches"])
+        cfg["trainer"]["n_epochs"] = CNN_CUT["n_epochs"]
+        configs[kind] = cfg
+    return configs
+
+
+def run_cnn_cli(root: str, kind: str, cfg: dict, device, procedure: str,
+                *flags):
+    """``-p procedure -m kind`` on ``cfg`` (written to ``root``) from
+    ``root``; returns the model and the seconds it took."""
+    from mpp_cnn_rs_object_detection_torch.__main__ import main as cli_main
+
+    path = os.path.join(root, cfg["model_name"] + ".json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    with inside(root):
+        t0 = time.perf_counter()
+        model = cli_main(["-p", procedure, "-m", kind, "-c", path, *flags],
+                         device=device)
+        return model, time.perf_counter() - t0
+
+
+def check_cnn_training(model, kind: str, seconds: float) -> None:
+    """Finite losses, a last epoch whose mean train loss is below the
+    first's; prints the epochs' and the stack builds' seconds."""
+    import numpy as np
+
+    log = model.logger.log
+    losses = np.asarray(log["train_loss"] + log["val_loss"])
+    pm = model.config["data_loader"]["patch_maker_params"]
+    b = model.batch_size
+    per_epoch = (pm["n_patches"] // b + max(pm["val_patches"], 64) // b) * b
+    rates = [per_epoch / s for s in model.epoch_seconds]
+    print(f"  -p train -m {kind} ({model.config['model_name']}): "
+          f"{seconds:.3f} s; epochs {log['epoch']}; train loss "
+          f"{log['train_loss']}; val loss {log['val_loss']}; seconds per "
+          f"epoch {model.epoch_seconds} ({rates} train + val "
+          f"patches/s); host seconds of build_patch_stack "
+          f"{model.stack_seconds}; adam count {model.state.opt.count}",
+          flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{kind}: non-finite losses {losses}")
+    if not log["train_loss"][-1] < log["train_loss"][0]:
+        raise AssertionError(f"{kind}: the train loss did not fall: "
+                             f"{log['train_loss']}")
+
+
+def cnn_step_vs_cpu(model, device, seed: int) -> None:
+    """One train step of float32 copies of ``model``'s state on the card
+    and on the CPU (TF32 off since phase 1), the same batch and
+    variates."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
+        AugmentVariates,
+        draw_augment_variates,
+    )
+    from mpp_cnn_rs_object_detection_torch.models.train_utils import (
+        recentred_bias,
+    )
+
+    assert not torch.backends.cudnn.allow_tf32
+    b = model.batch_size
+    stack = model.train_stack
+    idx = torch.arange(b, device=device)
+    batch = stack.batch(idx, int(max(1, stack.counts[:b].max())))
+    v = draw_augment_variates(torch.Generator(device=device).manual_seed(
+        seed), b, stack.images.shape[1], device)
+    card, cpu = model.train_replica(device), model.train_replica("cpu")
+    t0 = time.perf_counter()
+    got = card.train_batch(batch, v)
+    want = cpu.train_batch(tuple(t.cpu() for t in batch),
+                           AugmentVariates(*(t.cpu() for t in v)))
+    worst = {"loss": 0.0, "param": 0.0, "recentred": 0.0}
+    for k, w in want.items():
+        g = float(got[k])
+        worst["loss"] = max(worst["loss"], abs(g - float(w)) / abs(float(w)))
+    for name, p in cpu.state.params.items():
+        d = float((card.state.params[name].detach().cpu() - p.detach())
+                  .abs().max())
+        key = "recentred" if recentred_bias(name) else "param"
+        worst[key] = max(worst[key], d)
+    print(f"  one float32 step, card vs CPU ({time.perf_counter() - t0:.3f}"
+          f" s): losses {({k: float(x) for k, x in got.items()})}; "
+          f"max rel loss diff {worst['loss']:.3e} (tol {STEP_RTOL}); max "
+          f"param diff {worst['param']:.3e} (tol {STEP_PARAM_TOL}); "
+          f"re-centred biases {worst['recentred']:.3e} (tol "
+          f"{STEP_NOISE_TOL})", flush=True)
+    if worst["loss"] > STEP_RTOL or worst["param"] > STEP_PARAM_TOL \
+            or worst["recentred"] > STEP_NOISE_TOL:
+        raise AssertionError(f"the train step on the card disagrees with "
+                             f"the CPU: {worst}")
+
+
+def cnn_step_probe(model, device, seed: int) -> dict:
+    """One bf16 train step of ``model`` at full width, alone: its launches,
+    device ms and costliest kernels under the profiler; its wall ms and
+    peak memory unprofiled, and the device's idle share, 1 - device ms /
+    that wall; adam's launches, and the
+    augmentation's and targets' launches and device ms; the step's MFU
+    (the forward's FLOPs counted from the conv shapes, x3 for the
+    backward, over the wall ms, against the dense bf16 peak)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
+        augment_batch,
+        draw_augment_variates,
+    )
+
+    b = model.batch_size
+    stack = model.train_stack
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.arange(b, device=device)
+    width = int(max(1, stack.counts[:b].max()))
+    batch = stack.batch(idx, width)
+    p = stack.images.shape[1]
+
+    def step():
+        return model.train_batch(batch, draw_augment_variates(
+            gen, b, p, device))
+
+    def data():
+        x, cen, par, val = augment_batch(*batch, draw_augment_variates(
+            gen, b, p, device))
+        return model.targets(cen, par, val)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reps = 10
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    peak = torch.cuda.max_memory_allocated()
+    launches, dev_ms, kernels = profiled(step, top=10_000)
+    d_launches, d_ms = profiled(data)
+    torch.cuda.synchronize()
+    base_d = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    data()
+    torch.cuda.synchronize()
+    peak_d = torch.cuda.max_memory_allocated()
+    grads = [torch.zeros_like(t) for t in model.state.params.values()]
+    a_launches, a_ms = profiled(lambda: model.state.apply_gradients(grads))
+    x = torch.rand((b, 3, p, p), device=device)
+    model.state.train(True)
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        model.state.modules["net" if "net" in model.state.modules
+                            else ""](x)
+    flops = 3.0 * float(counter.get_total_flops())
+    return {"objects_per_patch_width": width, "launches": launches,
+            "device_ms": dev_ms, "wall_ms": wall_ms,
+            "idle_share": 1.0 - dev_ms / wall_ms,
+            "peak_gb": peak / 1e9, "peak_over_base_gb": (peak - base) / 1e9,
+            "adam_launches": a_launches, "adam_device_ms": a_ms,
+            "aug_targets_launches": d_launches, "aug_targets_device_ms": d_ms,
+            "aug_targets_peak_over_base_gb": (peak_d - base_d) / 1e9,
+            "step_tflop": flops / 1e12,
+            "mfu": flops / (wall_ms / 1e3) / H100_BF16_FLOPS,
+            "device_ms_by_kind": kernel_kinds(kernels),
+            "top_kernels": kernels[:6]}
+
+
+# kernel-name fragments -> kind, first match wins (layout conversions run
+# inside cuDNN's convolution calls, so they come before "cudnn")
+KERNEL_KINDS = (("layout", ("nchwToNhwc", "nhwcToNchw")),
+                ("reflect pad", ("reflection_pad",)),
+                ("convolution", ("cudnn", "xmma", "cutlass", "gemm", "conv",
+                                 "sm90_")),
+                ("reduction", ("reduce_kernel",)),
+                ("pooling", ("pool",)),
+                ("elementwise", ("elementwise", "index", "cat",
+                                 "multi_tensor")))
+
+
+def kernel_kinds(kernels) -> dict:
+    """(name, launches, ms) per kernel -> {kind: [launches, ms]}."""
+    out = {}
+    for name, n, ms in kernels:
+        kind = next((k for k, frags in KERNEL_KINDS
+                     if any(f in name for f in frags)), "other")
+        acc = out.setdefault(kind, [0, 0.0])
+        acc[0] += n
+        acc[1] += ms
+    return out
+
+
+def cnn_train_phase(root: str, device, seed: int) -> int:
+    """Phase 13; returns the detection-map launches of its inference."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.models.checkpoint import (
+        read_checkpoint,
+    )
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+    from mpp_cnn_rs_object_detection_torch.utils.png import read_unit_image
+
+    t0 = time.perf_counter()
+    configs = cnn_workspace(root, seed)
+    print(f"  dataset ({CNN_TRAIN_SCENES} train, {CLI_SCENES} val scenes of "
+          f"{CNN_SCENE}^2): {time.perf_counter() - t0:.3f} s; cut "
+          f"{CNN_CUT} of the configs' 16,384 patches, 2,048 val patches, "
+          f"136 epochs and a regeneration every 8", flush=True)
+    pos = configs["posnet"]
+    model, sec = run_cnn_cli(root, "posnet", pos, device, "train", "-o")
+    check_cnn_training(model, "posnet", sec)
+    if [s for s, _ in model.stack_seconds] != ["train", "val", "train"]:
+        raise AssertionError(f"expected one regeneration: "
+                             f"{model.stack_seconds}")
+    store = os.path.join(root, "models", "posnet", pos["model_name"])
+    steps = CNN_CUT["n_patches"] // model.batch_size
+    count = int(read_checkpoint(os.path.join(store, "model.msgpack"))[
+        "opt_state"]["0"]["count"])
+    resumed = dict(pos, trainer=dict(pos["trainer"], n_epochs=4))
+    model, sec = run_cnn_cli(root, "posnet", resumed, device, "train", "-r")
+    print(f"  -r at 4 epochs: {sec:.3f} s; resumed at epoch "
+          f"{model.last_epoch} from adam count {count}, now "
+          f"{model.state.opt.count}", flush=True)
+    if model.last_epoch != 3 or count != 3 * steps \
+            or model.state.opt.count != 4 * steps:
+        raise AssertionError(f"resume: epoch {model.last_epoch}, counts "
+                             f"{count} -> {model.state.opt.count}")
+    cnn_step_vs_cpu(model, device, seed)
+    probe = cnn_step_probe(model, device, seed)
+    patch = pos["data_loader"]["patch_maker_params"]["patch_size"]
+    print(f"  one {str(model.state.modules['net'].dtype)[6:]} step alone "
+          f"({model.batch_size} x {patch}^2): {probe}", flush=True)
+    shape, sec = run_cnn_cli(root, "shapenet", configs["shapenet"], device,
+                             "train", "-o")
+    check_cnn_training(shape, "shapenet", sec)
+
+    dk.KERNEL.launches = 0
+    inf, sec = run_cnn_cli(root, "posnet", pos, device, "infer")
+    torch.cuda.synchronize()
+    launches = dk.KERNEL.launches
+    if launches != CLI_SCENES:
+        raise AssertionError(f"-p infer -m posnet: expected {CLI_SCENES} "
+                             f"detection-map launches, counted {launches}")
+    img = read_unit_image(os.path.join(root, "data", "synth_cnn", "val",
+                                       "images", "0000.png"))
+    views = [dk.View(inf.head_planes(img), img.shape[:2], (0, False))]
+    kw = dict(mask_is_logit=True, **inf._epilogue())
+    err = compare("trained PosNet's launch on val scene 0",
+                  dk.detection_map_tta(views, img.shape[:2], **kw),
+                  dk.detection_map_tta_plain(views, img.shape[:2], **kw))
+    print(f"  -p infer -m posnet (trained weights, {kw['epilogue']} "
+          f"epilogue): {sec:.3f} s; {launches} detection-map launches; "
+          f"kernel vs plain max_abs {err:.3e}", flush=True)
+    return launches
+
+
 def unet_reference_check(pos_model, device):
     """The U-Net on the card against the CPU on a small input, in fp32."""
     import numpy as np
@@ -1329,6 +1651,9 @@ def run(args, device: str = "cuda:0") -> int:
         split_merge_phase(root, config, device, inference, data)
         phase(f"12 CLI infereval -c {SPLIT_MERGE_CONFIG} (split/merge), "
               "move switch", t0)
+        t0 = time.perf_counter()
+        launches_cnn_train = cnn_train_phase(root, device, args.seed)
+        phase("13 CLI train -m posnet|shapenet, resume, infer", t0)
     finally:
         shutil.rmtree(root)
 
@@ -1339,12 +1664,14 @@ def run(args, device: str = "cuda:0") -> int:
           f"{bound:.4f} ms (bytes); {100 * bound / k_ms:.1f} % of the bound",
           flush=True)
     print(f"  detection-map launches by path: in memory {launches_cnn}, CLI "
-          f"infereval {launches}, CLI train {launches_train}; phases 7, 8, "
-          f"10, 11 and 12 reuse the CNN results", flush=True)
+          f"infereval {launches}, CLI train {launches_train}, CLI infer of "
+          f"the trained PosNet {launches_cnn_train}; phases 7, 8, 10, 11 "
+          f"and 12 reuse the CNN results", flush=True)
     kernels = [{
         "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
         "replaces": dk.KERNEL.replaces,
-        "launches": launches_cnn + launches + launches_train,
+        "launches": launches_cnn + launches + launches_train
+        + launches_cnn_train,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
     }]

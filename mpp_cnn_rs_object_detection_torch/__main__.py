@@ -2,13 +2,14 @@
 
     python -m mpp_cnn_rs_object_detection_torch -m {posnet,shapenet,mpp} \
         -p {infer,eval,infereval} -c CONFIG [-d DATASET] [-o] [-r] [-s SUBSET]
-    python -m mpp_cnn_rs_object_detection_torch -m mpp -p train -c CONFIG \
-        [-d DATASET] [-o] [-r]
+    python -m mpp_cnn_rs_object_detection_torch -m {posnet,shapenet,mpp} \
+        -p train -c CONFIG [-d DATASET] [-o] [-r]
     python -m mpp_cnn_rs_object_detection_torch -p make_synth [-c CONFIG]
 
 It runs on the CUDA device; ``main(argv, device="cpu")`` runs it on the
 CPU. Procedures and models of ``main.py`` that the port does not have raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+``NotImplementedError`` naming their ``ROADMAP.md`` item, as does training a
+CNN with a host-pipeline config (no ``data_loader.device_pipeline``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import sys
 _NOT_PORTED_PROCEDURES = {"data_preview": "16", "translate_dota": "16",
                           "translate_cowc": "16", "check_div": "16"}
 _NOT_PORTED_MODELS = {"oracle": "14", "fasterrcnn": "14", "bbavec": "14"}
-_NOT_PORTED_TRAIN = {"posnet": "12", "shapenet": "12"}
 
 
 def parse_args(argv=None):
@@ -79,31 +79,26 @@ def main(argv=None, device=None):
             f"model {args.model} is not ported (ROADMAP.md item "
             f"{_NOT_PORTED_MODELS[args.model]})")
     train = args.procedure == "train"
-    if train and args.model in _NOT_PORTED_TRAIN:
-        raise NotImplementedError(
-            f"training {args.model} is not ported (ROADMAP.md item "
-            f"{_NOT_PORTED_TRAIN[args.model]})")
     config = load_config(args)
-    if args.model == "posnet":
+    # as main.py: a training run loads its stored model only to resume
+    load = args.resume or not train
+    if args.model in ("posnet", "shapenet"):
         from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
             PosNetModel,
         )
-
-        model = PosNetModel(config, device, load=True, dataset=args.dataset,
-                            overwrite=args.overwrite)
-    elif args.model == "shapenet":
         from mpp_cnn_rs_object_detection_torch.models.shapenet_model import (
             ShapeNetModel,
         )
 
-        model = ShapeNetModel(config, device, load=True,
-                              dataset=args.dataset, overwrite=args.overwrite)
+        cls = PosNetModel if args.model == "posnet" else ShapeNetModel
+        model = cls(config, device, load=load, dataset=args.dataset,
+                    overwrite=args.overwrite, train=train)
     else:
         from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import MPPModel
 
         model = MPPModel(config, phase="train" if train else "infer",
                          overwrite=args.overwrite,
-                         load=args.resume or not train, dataset=args.dataset,
+                         load=load, dataset=args.dataset,
                          device=device)
 
     if train:

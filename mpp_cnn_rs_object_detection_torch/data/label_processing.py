@@ -1,8 +1,10 @@
 """Analytic rectangle rasterisation.
 
 Counterpart of ``rect_mask`` in
-``mpp_cnn_rs_object_detection_tpu/data/label_processing.py`` (the CNN
-training targets are not ported).
+``mpp_cnn_rs_object_detection_tpu/data/label_processing.py``. The CNN
+training targets of the device pipeline are ``data/device_pipeline.py``'s;
+the host label processors (EDT and watershed targets) belong to the host
+pipeline, which is not ported (``ROADMAP.md`` item 12).
 """
 
 from __future__ import annotations

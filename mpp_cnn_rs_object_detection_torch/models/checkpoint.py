@@ -7,8 +7,12 @@ leaves are ndarrays packed as ext type 1 (``(shape, dtype name, bytes)``),
 numpy scalars as ext type 3, and Python ints. The reader below decodes that
 subset of msgpack (map, array, str, bin, int, float, nil, bool, ext) without
 the ``msgpack`` package, which the GPU host lacks. The writer is its inverse
-and packs a tree the way ``flax.serialization.to_bytes`` does. Weights are
-converted in memory.
+and packs a tree the way ``flax.serialization.to_bytes`` does (dict keys in
+sorted order). Weights are converted in memory; ``train_state_to_jax`` /
+``train_state_from_jax`` carry a whole training state across: parameters,
+BatchNorm statistics and optax adam's ``(ScaleByAdamState(count, mu, nu),
+EmptyState())``, which flax stores as ``{"0": {"count", "mu", "nu"}, "1":
+{}}``.
 """
 
 from __future__ import annotations
@@ -341,3 +345,40 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             raise ValueError(f"unexpected parameter {key}")
     return {"params": params, "batch_stats": stats}
+
+
+def train_state_to_jax(params: Dict[str, torch.Tensor],
+                       buffers: Dict[str, torch.Tensor],
+                       mu: Dict[str, torch.Tensor],
+                       nu: Dict[str, torch.Tensor], count: int
+                       ) -> Dict[str, Any]:
+    """A training state as flax stores it: ``params``, ``mu`` and ``nu``
+    are keyed by the same dotted parameter names (their first component is
+    the flax tree's, e.g. ``net.`` / ``div.`` for a PosNet), ``buffers``
+    the BatchNorm module's running statistics. Returns ``{"params",
+    "batch_stats", "opt_state"}`` with numpy leaves."""
+    return {
+        "params": params_to_jax(params)["params"],
+        "batch_stats": params_to_jax(buffers)["batch_stats"],
+        "opt_state": {"0": {"count": np.asarray(count, np.int32),
+                            "mu": params_to_jax(mu)["params"],
+                            "nu": params_to_jax(nu)["params"]},
+                      "1": {}},
+    }
+
+
+def train_state_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``train_state_to_jax`` for a flax state tree (numpy
+    leaves, e.g. a checkpoint): ``params``, ``mu``, ``nu`` (dotted names ->
+    tensors), ``batch_stats`` (running statistics as a state_dict) and
+    ``count``; the last three are None where the tree has no adam state."""
+    out = {"params": params_from_jax({"params": tree["params"]}),
+           "batch_stats": params_from_jax(
+               {"batch_stats": tree.get("batch_stats", {})}),
+           "mu": None, "nu": None, "count": None}
+    adam = (tree.get("opt_state") or {}).get("0")
+    if isinstance(adam, dict) and {"count", "mu", "nu"} <= set(adam):
+        out["mu"] = params_from_jax({"params": adam["mu"]})
+        out["nu"] = params_from_jax({"params": adam["nu"]})
+        out["count"] = int(adam["count"])
+    return out

@@ -1,16 +1,20 @@
-"""PosNet inference: pointing-vector U-Net -> detection map.
+"""PosNet: pointing-vector U-Net -> detection map.
 
-Counterpart of the inference part of
-``mpp_cnn_rs_object_detection_tpu/models/posnet_model.py`` (``infer_on_image``,
-``vec2detection_map``, ``detection_map_on_image``, and at dataset level
-``infer`` and ``eval``). Images are (H, W, 3) float tensors in [0, 1]; maps
-keep the JAX package's layout ((H, W) mask, (H, W, 2) vectors). Both
+Counterpart of ``mpp_cnn_rs_object_detection_tpu/models/posnet_model.py``:
+training on the device-resident patch pipeline (``models/base.py``; the
+DivClassifier head trained jointly under autograd, its params under
+``"div"``), and inference (``infer_on_image``, ``vec2detection_map``,
+``detection_map_on_image``, and at dataset level ``infer`` and
+``eval``). Images are (H, W, 3) float tensors in [0, 1]; maps keep the JAX
+package's layout ((H, W) mask, (H, W, 2) vectors). Both
 detection-map branches -- the DivClassifier head and
 ``clip(-div/2, 0, 1) * mask`` -- go through the CUDA stencil kernel on a GPU
 tensor (``ops/detection_kernel.py``), which takes the 8 TTA views' head
 outputs in one launch.
 
-A model built with ``load=True`` lives in the model store
+A model built with ``train=True`` trains into its model-store directory
+(``-r``/``load=True`` resumes its newest checkpoint). A model built with
+``load=True`` alone lives in the model store
 (``utils/config.py:startup_config``) and reads its newest checkpoint there;
 ``infer(subset)`` writes the JAX package's result pickles, detection-map
 PNGs and DOTA HBB translation, and replays existing pickles on resume.
@@ -35,13 +39,27 @@ from mpp_cnn_rs_object_detection_torch.metrics.dota_eval import dota_eval
 from mpp_cnn_rs_object_detection_torch.metrics.dota_writer import (
     DOTAResultsTranslator,
 )
-from mpp_cnn_rs_object_detection_torch.models.base import BaseModel
+from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
+    pos_targets,
+)
+from mpp_cnn_rs_object_detection_torch.models.base import (
+    BaseModel,
+    PatchBasedTrainer,
+    require_device_pipeline,
+)
 from mpp_cnn_rs_object_detection_torch.models.checkpoint import (
     latest_checkpoint,
     params_from_jax,
     params_to_jax,
     read_checkpoint,
     write_checkpoint,
+)
+from mpp_cnn_rs_object_detection_torch.models.losses import (
+    pointing_vector_loss,
+)
+from mpp_cnn_rs_object_detection_torch.models.train_utils import (
+    TrainState,
+    save_checkpoint,
 )
 from mpp_cnn_rs_object_detection_torch.models.unet import (
     DivClassifier,
@@ -83,14 +101,19 @@ def image_id(path: str) -> int:
 
 
 def open_store(model, config: Dict, kind: str, load: bool,
-               dataset: Optional[str], overwrite: bool) -> Dict:
-    """Bind ``model`` to its model-store directory when ``load`` (the
+               dataset: Optional[str], overwrite: bool,
+               train: bool = False) -> Dict:
+    """Bind ``model`` to its model-store directory when it loads (the
     config is frozen there and the newest checkpoint is read after the
-    networks exist); returns the config to build from."""
+    networks exist) or trains (a new directory unless ``load`` resumes;
+    ``overwrite`` replaces an existing one); returns the config to build
+    from."""
     model.save_path, model.logger = None, None
-    if load:
+    if train:
+        require_device_pipeline(config)
+    if load or train:
         config, model.logger, model.save_path = startup_config(
-            config, kind, load_model=True, overwrite=overwrite)
+            config, kind, load_model=load, overwrite=overwrite)
     model.dataset = dataset or (config.get("data_loader") or {}).get(
         "dataset")
     # seconds of dataset inference: U-Net forwards and the detection-map
@@ -144,24 +167,82 @@ def infer_chunked(image: torch.Tensor, forward) -> List[torch.Tensor]:
     return outs
 
 
-class PosNetModel(BaseModel):
-    """Inference wrapper around a PosNet (+ DivClassifier head)."""
+class PosNetModel(BaseModel, PatchBasedTrainer):
+    """A PosNet (+ DivClassifier head): trained with ``train=True``, else
+    an inference wrapper."""
 
     def __init__(self, config: Dict, device=None, load: bool = False,
-                 dataset: Optional[str] = None, overwrite: bool = False):
-        config = open_store(self, config, "posnet", load, dataset, overwrite)
+                 dataset: Optional[str] = None, overwrite: bool = False,
+                 train: bool = False):
+        config = open_store(self, config, "posnet", load, dataset, overwrite,
+                            train)
         self.config = config
         self.device = resolve_device(device)
         self.use_div_clf = bool(config.get("div_clf_model"))
-        learn_mask = config.get("loss", {}).get("learn_mask", True)
-        self.net = _inference_module(PosNet(
-            config["model"]["hidden_dims"], out_channels=3 if learn_mask else 2,
-            dtype=net_dtype(config)), self.device)
+        self.learn_mask = config.get("loss", {}).get("learn_mask", True)
+        self._clf_wb: Optional[Tuple[float, float]] = None
+        self.state = None
+        if train:
+            self.init_training(net_dtype(config), resume=load)
+            return
+        self.net = _inference_module(self._new_net(net_dtype(config)),
+                                     self.device)
         self.div_clf = (_inference_module(DivClassifier(), self.device)
                         if self.use_div_clf else None)
-        self._clf_wb: Optional[Tuple[float, float]] = None
         if load:
             self.load_checkpoint(latest_checkpoint(self.save_path))
+
+    def _new_net(self, dtype: torch.dtype) -> PosNet:
+        return PosNet(self.config["model"]["hidden_dims"],
+                      out_channels=3 if self.learn_mask else 2, dtype=dtype)
+
+    # ------------------------------------------------------------ training
+
+    def make_train_state(self, dtype: torch.dtype, device) -> TrainState:
+        """Bind new trainable modules of ``dtype`` on ``device``: the U-Net
+        (params ``net``, its BatchNorm statistics the tree's) and the
+        DivClassifier head (params ``div``)."""
+        self.net = self._new_net(dtype).to(device)
+        self.div_clf = DivClassifier().to(device) if self.use_div_clf \
+            else None
+        modules = {"net": self.net}
+        if self.div_clf is not None:
+            modules["div"] = self.div_clf
+        loss_cfg = self.config["loss"]
+        self.loss_kwargs = dict(
+            learn_mask=self.learn_mask,
+            compute_mask=loss_cfg.get("compute_relevant", True),
+            balanced_mask_loss=loss_cfg.get("balanced_mask_loss", True),
+            focal_loss=bool(loss_cfg.get("focal_loss")),
+            vec_loss_on_prod=bool(loss_cfg.get("vec_loss_on_prod")),
+        )
+        return TrainState(modules, "net", loss_cfg.get("learning_rate", 1e-3))
+
+    def targets(self, centers, params, valid) -> Dict[str, torch.Tensor]:
+        loss_cfg = self.config["loss"]
+        return pos_targets(
+            centers, params, valid,
+            self.config["data_loader"]["patch_maker_params"]["patch_size"],
+            loss_cfg["max_distance"],
+            sigma_dil=loss_cfg.get("bin_map_dil") or 0.6)
+
+    def loss(self, x: torch.Tensor, y: Dict, train: bool):
+        """(B, P, P, 3) images -> (loss, metrics). The DivClassifier head
+        runs in training only (its input ``concat(vec, sigmoid(mask))``),
+        so the validation loss has no ``div_loss``, as in JAX."""
+        out = self.net(x.permute(0, 3, 1, 2).contiguous())
+        div_score = center_bin = None
+        if train and self.div_clf is not None:
+            div_score = self.div_clf(torch.cat(
+                [out[:, :2], torch.sigmoid(out[:, 2:3])], dim=1
+            ).permute(0, 2, 3, 1))
+            center_bin = y["center_binary_map_dil"]
+        d = pointing_vector_loss(
+            out, y["pointing_map"],
+            target_mask=y["mask"] if self.learn_mask else None,
+            div_score=div_score, center_bin_map=center_bin,
+            **self.loss_kwargs)
+        return d["loss"], d
 
     @classmethod
     def from_model_dir(cls, model_dir: str, device=None):
@@ -187,7 +268,12 @@ class PosNetModel(BaseModel):
 
     def save(self) -> None:
         """``model.msgpack`` in the model's store directory (the inverse of
-        ``load_checkpoint``)."""
+        ``load_checkpoint``): with the optimizer state after training."""
+        if self.state is not None:
+            save_checkpoint(self.save_path, self.state,
+                            self.config["trainer"]["n_epochs"],
+                            name="model.msgpack")
+            return
         net = params_to_jax(self.net.state_dict())
         params = {"net": net["params"]}
         if self.div_clf is not None:

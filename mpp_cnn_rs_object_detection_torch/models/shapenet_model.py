@@ -1,7 +1,9 @@
-"""ShapeNet inference: per-pixel mark distributions (size, ratio, angle).
+"""ShapeNet: per-pixel mark distributions (size, ratio, angle).
 
-Counterpart of the inference part of
-``mpp_cnn_rs_object_detection_tpu/models/shapenet_model.py``
+Counterpart of ``mpp_cnn_rs_object_detection_tpu/models/shapenet_model.py``:
+training on the device-resident patch pipeline (``models/base.py``; painted
+class targets in ``mask_mode`` "shapes" or "gaussian", the masked pixel CE
+with optional focal weighting and ordinal label smoothing) and inference
 (``infer_on_image``, ``dist_maps_on_image``, and at dataset level ``infer``
 and ``eval``): three (H, W, C) softmax maps, averaged over the dihedral group
 with ``inference.tta`` (the cyclic angle map also permutes its bins).
@@ -30,13 +32,24 @@ from mpp_cnn_rs_object_detection_torch.metrics.dota_eval import dota_eval
 from mpp_cnn_rs_object_detection_torch.metrics.dota_writer import (
     DOTAResultsTranslator,
 )
-from mpp_cnn_rs_object_detection_torch.models.base import BaseModel
+from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
+    shape_targets,
+)
+from mpp_cnn_rs_object_detection_torch.models.base import (
+    BaseModel,
+    PatchBasedTrainer,
+)
 from mpp_cnn_rs_object_detection_torch.models.checkpoint import (
     latest_checkpoint,
     params_from_jax,
     params_to_jax,
     read_checkpoint,
     write_checkpoint,
+)
+from mpp_cnn_rs_object_detection_torch.models.losses import pixel_ce_loss
+from mpp_cnn_rs_object_detection_torch.models.train_utils import (
+    TrainState,
+    save_checkpoint,
 )
 from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
     PosNetModel,
@@ -68,11 +81,15 @@ from mpp_cnn_rs_object_detection_torch.utils.files import (
 from mpp_cnn_rs_object_detection_torch.utils.png import read_unit_image
 
 
-class ShapeNetModel(BaseModel):
+class ShapeNetModel(BaseModel, PatchBasedTrainer):
+    """A ShapeNet: trained with ``train=True``, else an inference
+    wrapper."""
+
     def __init__(self, config: Dict, device=None, load: bool = False,
-                 dataset: Optional[str] = None, overwrite: bool = False):
+                 dataset: Optional[str] = None, overwrite: bool = False,
+                 train: bool = False):
         config = open_store(self, config, "shapenet", load, dataset,
-                            overwrite)
+                            overwrite, train)
         self.config = config
         self.device = resolve_device(device)
         self.n_classes = config["trainer"].get("n_classes", 32)
@@ -82,11 +99,49 @@ class ShapeNetModel(BaseModel):
             size_min=map_cfg.get("size_mapping_min", 0.0),
             size_max=map_cfg.get("size_mapping_max", 32.0),
         )
-        self.net = _inference_module(ShapeNet(
-            config["model"]["hidden_dims"], out_features=3,
-            n_classes=self.n_classes, dtype=net_dtype(config)), self.device)
+        self.state = None
+        if train:
+            self.init_training(net_dtype(config), resume=load)
+            return
+        self.net = _inference_module(self._new_net(net_dtype(config)),
+                                     self.device)
         if load:
             self.load_checkpoint(latest_checkpoint(self.save_path))
+
+    def _new_net(self, dtype: torch.dtype) -> ShapeNet:
+        return ShapeNet(self.config["model"]["hidden_dims"], out_features=3,
+                        n_classes=self.n_classes, dtype=dtype)
+
+    # ------------------------------------------------------------ training
+
+    def make_train_state(self, dtype: torch.dtype, device) -> TrainState:
+        """Bind a new trainable U-Net of ``dtype`` on ``device`` (the params
+        tree's root)."""
+        self.net = self._new_net(dtype).to(device)
+        return TrainState({"": self.net}, "",
+                          self.config["loss"].get("learning_rate", 1e-3))
+
+    def targets(self, centers, params, valid) -> Dict:
+        loss_cfg = self.config["loss"]
+        return shape_targets(
+            centers, params, valid,
+            self.config["data_loader"]["patch_maker_params"]["patch_size"],
+            self.mappings, mask_mode=loss_cfg.get("mask_mode", "shapes"),
+            mask_sigma=loss_cfg.get("mask_sigma") or "auto")
+
+    def loss(self, x: torch.Tensor, y: Dict, train: bool):
+        """(B, P, P, 3) images -> (loss, metrics)."""
+        loss_cfg = self.config["loss"]
+        focal_args = loss_cfg.get("focal_loss_args", {}) or {}
+        d = pixel_ce_loss(
+            self.net(x.permute(0, 3, 1, 2).contiguous()),
+            y["value_class_map"], y["loss_mask"],
+            focal_loss=bool(loss_cfg.get("focal_loss")),
+            focal_alpha=focal_args.get("alpha", 0.5),
+            focal_gamma=focal_args.get("gamma", 2.0),
+            label_smoothing_sigma=float(
+                loss_cfg.get("label_smoothing_sigma", 0.0)))
+        return d["loss"], d
 
     @classmethod
     def from_model_dir(cls, model_dir: str, device=None):
@@ -105,7 +160,13 @@ class ShapeNetModel(BaseModel):
         self.load_variables(ck["params"], ck["batch_stats"])
 
     def save(self) -> None:
-        """``model.msgpack`` in the model's store directory."""
+        """``model.msgpack`` in the model's store directory: with the
+        optimizer state after training."""
+        if self.state is not None:
+            save_checkpoint(self.save_path, self.state,
+                            self.config["trainer"]["n_epochs"],
+                            name="model.msgpack")
+            return
         var = params_to_jax(self.net.state_dict())
         write_checkpoint(os.path.join(self.save_path, "model.msgpack"),
                          var["params"], var["batch_stats"],

@@ -4,8 +4,11 @@ Counterpart of ``mpp_cnn_rs_object_detection_tpu/models/unet.py``:
 DoubleConv (reflect pad + 3x3 conv + BatchNorm + ReLU, twice), Down (2x2
 max-pool), Up (2x2 stride-2 transposed conv, then ``concat([skip, x])``).
 Convolutions run in the configured compute ``dtype`` (bf16 by default, as in
-the JAX models) with fp32 parameters; BatchNorm (eps 1e-5, running
-statistics) and everything between the convolutions stay fp32.
+the JAX models) with fp32 parameters, whose gradients come back through the
+casts; BatchNorm (eps 1e-5) and everything between the convolutions stay
+fp32. In eval mode BatchNorm uses the running statistics; in train mode
+(``module.train()``) it normalises with flax's batch statistics and updates
+the running ones as flax does (``batch_norm_train``).
 
 Submodules carry the flax module names (``UNet_0``, ``Down_1``, ``Conv_0``,
 ``BatchNorm_1``, ...), so a flax parameter path maps onto a state_dict key
@@ -21,6 +24,11 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+# flax nn.BatchNorm(momentum=0.9): ra = 0.9 * ra + 0.1 * batch statistic
+BN_MOMENTUM = 0.9
+# flax's lecun_normal: a normal truncated at two standard deviations, whose
+# std is 1 / sqrt(fan_in) after dividing by the truncation's std factor
+_TRUNC_STD = 0.87962566103423978
 
 
 def infer_pad_hw(h: int, w: int) -> tuple:
@@ -32,6 +40,49 @@ def infer_pad_hw(h: int, w: int) -> tuple:
     while side < max(h, w):
         side *= 2
     return side, side
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=False)`` of an fp32 NCHW
+    tensor: the batch mean and the biased variance ``max(E[x^2] - E[x]^2,
+    0)`` over (N, H, W), ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``, and the running statistics moved to ``0.9 * ra + 0.1 * stat``
+    (torch's own batch norm would store the unbiased variance)."""
+    mean = x.mean(dim=(0, 2, 3))
+    mean2 = torch.square(x).mean(dim=(0, 2, 3))
+    var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((x - mean[:, None, None]) * mul[:, None, None]
+            + bn.bias[:, None, None])
+
+
+def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise ``module`` with flax's default initialisers, drawn from
+    ``generator``: lecun-normal conv kernels (fan-in = in x kh x kw, also
+    for transposed convs), zero biases, BatchNorm scale 1 and bias 0 with
+    mean-0 / var-1 statistics. JAX's own draws (threefry) are not
+    reproducible in torch; a state carried over from JAX is exact
+    (``models/checkpoint.py:train_state_from_jax``)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                in_ch = w.shape[0] if isinstance(m, nn.ConvTranspose2d) \
+                    else w.shape[1]
+                std = (1.0 / (in_ch * w.shape[2] * w.shape[3])) ** 0.5 \
+                    / _TRUNC_STD
+                z = torch.empty(w.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(z, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                w.copy_(z * std)
+                m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
 
 
 def _conv(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype) -> torch.Tensor:
@@ -57,8 +108,11 @@ class DoubleConv(nn.Module):
             x = F.pad(x.to(self.dtype), (1, 1, 1, 1), mode="reflect")
             x = _conv(x, getattr(self, f"Conv_{i}"), self.dtype)
             bn = getattr(self, f"BatchNorm_{i}")
-            x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                             bn.weight, bn.bias, False, 0.0, bn.eps)
+            if self.training:
+                x = batch_norm_train(x.float(), bn)
+            else:
+                x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
+                                 bn.weight, bn.bias, False, 0.0, bn.eps)
             x = F.relu(x)
         return x
 
@@ -160,9 +214,11 @@ class ShapeNet(nn.Module):
 class DivClassifier(nn.Module):
     """``conv1x1(div_ij(vec) * mask)``: the PosNet's center-logit head.
 
-    Input is NHWC ``concat([vec, mask])`` as in the JAX module; the main
-    inference path instead runs the same arithmetic plus the sigmoid in the
-    CUDA kernel's ``div_clf`` epilogue (``ops/detection_kernel.py``)."""
+    Input is NHWC ``concat([vec, mask])`` as in the JAX module; training
+    runs it under autograd (``ops/divergence.divergence_ij``, as the JAX
+    package computes it in XLA), while the main inference path runs the
+    same arithmetic plus the sigmoid in the CUDA kernel's ``div_clf``
+    epilogue (``ops/detection_kernel.py``)."""
 
     def __init__(self):
         super().__init__()

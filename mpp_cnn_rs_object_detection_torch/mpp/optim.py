@@ -2,8 +2,10 @@
 formulas (the GPU host has no optax): ``optax.adam`` and ``optax.sgd``
 (no momentum), optionally with ``optax.exponential_decay(lr,
 transition_steps=1, decay_rate=gamma)``. The combiner's training
-(``train_weights.py``) and the gradient polish (``polish.py``) step
-through it."""
+(``train_weights.py``), the gradient polish (``polish.py``) and the CNN
+trainer (``models/train_utils.py``) step through it. Each formula runs as
+one ``torch._foreach_*`` call over all tensors, so a step costs the same
+few launches whether it updates one tensor or the U-Net's ~70."""
 
 from __future__ import annotations
 
@@ -36,16 +38,22 @@ class Optimizer:
                      else self.lr * float(np.float32(self.gamma)
                                           ** np.float32(self.count)))
         self.count += 1
-        out = {}
-        for k, p in params.items():
-            g = grads[k]
-            if self.kind == "adam":
-                self.mu[k] = (1 - ADAM_B1) * g + ADAM_B1 * self.mu[k]
-                self.nu[k] = (1 - ADAM_B2) * g * g + ADAM_B2 * self.nu[k]
-                mu_hat = self.mu[k] / (1 - ADAM_B1 ** self.count)
-                nu_hat = self.nu[k] / (1 - ADAM_B2 ** self.count)
-                u = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
-            else:
-                u = g
-            out[k] = p - step_size * u
-        return out
+        keys = list(params)
+        g = [grads[k] for k in keys]
+        if self.kind == "adam":
+            mul, add, div = (torch._foreach_mul, torch._foreach_add,
+                             torch._foreach_div)
+            mu = add(mul(g, 1 - ADAM_B1),
+                     mul([self.mu[k] for k in keys], ADAM_B1))
+            nu = add(mul(mul(g, 1 - ADAM_B2), g),
+                     mul([self.nu[k] for k in keys], ADAM_B2))
+            self.mu.update(zip(keys, mu))
+            self.nu.update(zip(keys, nu))
+            mu_hat = div(mu, 1 - ADAM_B1 ** self.count)
+            nu_hat = div(nu, 1 - ADAM_B2 ** self.count)
+            u = div(mu_hat, add(torch._foreach_sqrt(nu_hat), ADAM_EPS))
+        else:
+            u = g
+        new = torch._foreach_sub([params[k] for k in keys],
+                                 torch._foreach_mul(u, step_size))
+        return dict(zip(keys, new))

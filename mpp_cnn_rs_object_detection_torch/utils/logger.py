@@ -1,8 +1,12 @@
 """Metrics log of a model directory (``log.json``).
 
 Counterpart of ``Logger`` in ``mpp_cnn_rs_object_detection_tpu/utils/
-logger.py`` without its rolling training checkpoints (training is not
-ported): a dict of lists, rewritten to ``log.json`` on every update.
+logger.py``: a dict of lists, rewritten to ``log.json`` on every update;
+the CNN trainer logs each epoch's means with ``train_`` / ``val_``
+prefixes. Its rolling checkpoints are written by the trainer
+(``models/train_utils.py:save_checkpoint``), so the logger's own
+``log_model`` / ``state_provider`` hook, which no trainer of either
+package registers, is not ported.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ import json
 import os
 from datetime import datetime
 from typing import Dict, List
+
+import numpy as np
 
 from mpp_cnn_rs_object_detection_torch.utils.files import (
     NumpyEncoder,
@@ -30,6 +36,15 @@ class Logger:
         loaded = cls(save_dir=os.path.split(path)[0])
         loaded.log = log
         return loaded
+
+    def update_train_val(self, epoch: int, train_metrics: Dict[str, float],
+                         val_metrics: Dict[str, float]):
+        metrics = {
+            **{"train_" + k: float(np.mean(v))
+               for k, v in train_metrics.items()},
+            **{"val_" + k: float(np.mean(v)) for k, v in val_metrics.items()},
+        }
+        self.update(epoch, metrics=metrics)
 
     def update(self, epoch: int, metrics: Dict[str, float], prefix: str = ""):
         timestamp_str = datetime.now().strftime("%m/%d/%y-%H:%M:%S")

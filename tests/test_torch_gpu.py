@@ -120,3 +120,64 @@ def test_tta_kernel_refuses_what_it_does_not_take():
         dk.detection_map_tta(thin, (1, 24))
     with pytest.raises(ValueError):  # a crop that is not the view's frame
         dk.detection_map_tta(views, (24, 20))
+
+
+@pytest.mark.gpu
+def test_cnn_train_step_on_the_card_matches_the_cpu(tmp_path, monkeypatch):
+    """One PosNet train step (augmentation, targets, DivClassifier head,
+    adam) in float32 with TF32 off, from the same state, batch and
+    variates on the card and on the CPU."""
+    _need_cuda()
+    import json
+    import os
+
+    from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
+        AugmentVariates,
+        draw_augment_variates,
+    )
+    from mpp_cnn_rs_object_detection_torch.data.synth import (
+        make_synth_dataset,
+    )
+    from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
+        PosNetModel,
+    )
+    from mpp_cnn_rs_object_detection_torch.models.train_utils import (
+        recentred_bias,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "paths_config.json").write_text(json.dumps(
+        {"dataset_path": [str(tmp_path / "data")],
+         "model_path": [str(tmp_path / "models")]}))
+    make_synth_dataset(name="tiny", n_items=2, shape=(128, 128), n_rect=60,
+                       seed=0, base_dir=str(tmp_path / "data"))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "model_configs", "posnet",
+                           "pos_r2cp.json")) as f:
+        cfg = json.load(f)
+    cfg["model_name"] = "gpu_step"
+    cfg["data_loader"]["dataset"] = "tiny"
+    cfg["data_loader"]["patch_maker_params"].update(
+        patch_size=64, n_patches=64, val_patches=64)
+    cfg["trainer"]["batch_size"] = 16
+    model = PosNetModel(cfg, device="cuda", train=True)
+    card, cpu = model.train_replica("cuda"), model.train_replica("cpu")
+    idx = torch.arange(16, device="cuda")
+    batch = model.train_stack.batch(idx, int(model.train_stack.counts.max()))
+    v = draw_augment_variates(torch.Generator("cuda").manual_seed(0), 16,
+                              64, "cuda")
+    got = card.train_batch(batch, v)
+    want = cpu.train_batch(tuple(t.cpu() for t in batch),
+                           AugmentVariates(*(t.cpu() for t in v)))
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
+                                   atol=1e-6)
+    for name, p in cpu.state.params.items():
+        # one adam step of at most the learning rate (1e-3): the two
+        # devices' float32 gradient sums part far less than a step, but
+        # for the re-centred biases, which follow float noise
+        tol = 2e-3 if recentred_bias(name) else 1e-4
+        diff = card.state.params[name].detach().cpu() - p.detach()
+        assert float(diff.abs().max()) <= tol, name

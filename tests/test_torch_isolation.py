@@ -1,6 +1,6 @@
 """The PyTorch port, chip_smoke.py and bench_torch.py must run where the JAX
-stack is absent: with jax, flax, optax, msgpack, PIL, ninja and the JAX
-package blocked, every module of the port and both scripts import, the
+stack is absent: with jax, flax, optax, msgpack, PIL, OpenCV, ninja and the
+JAX package blocked, every module of the port and both scripts import, the
 checkpoint reader decodes a checked-in flax checkpoint, and the synthetic
 dataset writer and the PNG codec run."""
 
@@ -11,8 +11,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "mpp_cnn_rs_object_detection_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "ninja",
-           "mpp_cnn_rs_object_detection_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2",
+           "ninja", "mpp_cnn_rs_object_detection_tpu")
 CKPT = os.path.join(ROOT, "artifacts", "models_storage", "posnet",
                     "pos_r2cp_tta", "model.msgpack")
 

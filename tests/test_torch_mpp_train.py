@@ -241,9 +241,11 @@ def test_manual_legacy_mode_runs(trained):
     ("train posnet", 12), ("train shapenet", 12), ("tile_mesh mpp_r3", 15),
     ("contrast setup", 13)])
 def test_what_still_raises(case, item):
-    """CNN training, the tile mesh of a tiled manual config, and the
-    contrast energy setup raise with the ROADMAP.md item that ports them
-    (the tiled mode itself is ported)."""
+    """CNN training on the host patch pipeline (a config without
+    ``data_loader.device_pipeline``; the device pipeline is ported), the
+    tile mesh of a tiled manual config, and the contrast energy setup raise
+    with the ROADMAP.md item that ports them (the tiled mode itself is
+    ported)."""
     if case.startswith("tile_mesh"):
         cfg = tmm.load_mpp_config("mpp_r3")
         assert "manual" in cfg and cfg["inference"]["scene_mode"] == "tiled"
@@ -251,8 +253,10 @@ def test_what_still_raises(case, item):
         cfg["inference"]["tile_mesh"] = True
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         if case.startswith("train"):
-            t_main(["-p", "train", "-m", case.split()[1], "-c",
-                    "pos_r2cp_tta"], device="cpu")
+            kind = case.split()[1]
+            t_main(["-p", "train", "-m", kind, "-c",
+                    "pos_quick" if kind == "posnet" else "shape_quick"],
+                   device="cpu")
         elif case.startswith("tile_mesh"):
             tmm.check_inference_config(cfg)
         else:
