@@ -100,9 +100,27 @@ Phases (each prints one line with its seconds; any failure raises):
      peak memory, MFU; adam's launches and the augmentation and targets'
      alone); then ``-p infer -m posnet`` on the val scenes with the trained
      model: one detection-map launch per scene, and one launch held
-     against its plain version.
+     against its plain version;
+  14. CNN training on the host patch pipeline, the reference's own recipes
+     at full width, on phase 13's dataset: copies of ``HOST_CONFIGS``
+     (``config_pos``: U-Net [32, 64, 128, 256] in bf16, the div head,
+     batches of 64 x 128^2, ``strong`` augmentation with histogram
+     matching, hard mining; ``config_shape`` the same without mining) cut
+     to ``HOST_CUT`` (512 of 16,384 patches, 256 val patches, 3 of 256
+     epochs, a regeneration after epochs 1 and 2, the PosNet mining after
+     epoch 2, the last). ``-p train -m posnet``: the regeneration
+     sequence, one error-map PNG per train scene, the last train set drawn
+     through a ``DensitySampler``, the temporary patch set gone at the
+     end; then on a fresh patch set one host batch's float32 loss on the
+     card against the CPU, one val epoch timed and one train epoch timed
+     under the profiler (the loader's waits per batch, device ms per step,
+     the device's idle share), projected to the full ``config_pos`` (its
+     epochs, steps, regenerations and mining passes); ``-p train -m
+     shapenet``; and
+     ``-p infer -m posnet`` with the trained PosNet: one detection-map
+     launch per val scene, one held against its plain version.
 Then one JSON line per kernel table (its launches: every path's, each
-counted from 0 -- phases 3, 6, 9 and 13; the others reuse CNN results), the
+counted from 0 -- phases 3, 6, 9, 13 and 14; the others reuse CNN results), the
 card's name and power limit, and the result line ``{"ok": true, "device":
 {...}}`` last.
 """
@@ -172,6 +190,11 @@ CNN_TRAIN_SCENES, CNN_SCENE, CNN_OBJECTS = 8, 512, 100
 # the parameters after one adam step of at most the learning rate (1e-3);
 # the biases BatchNorm re-centres follow float noise, up to two steps
 STEP_RTOL, STEP_PARAM_TOL, STEP_NOISE_TOL = 1e-4, 1e-4, 2e-3
+# phase 14: CNN training on the host patch pipeline, depth-cut copies of
+# the reference's recipes (full width; val patches are n_patches // 2)
+HOST_CONFIGS = {"posnet": "config_pos", "shapenet": "config_shape"}
+HOST_CUT = {"n_patches": 512, "n_epochs": 3, "dataset_update_interval": 1,
+            "error_update_interval": 2}
 # ~50 ms of the card's clock: longer than the host takes to queue a timed
 # run of calls
 SLEEP_CYCLES = 100_000_000
@@ -1487,6 +1510,210 @@ def cnn_train_phase(root: str, device, seed: int) -> int:
     return launches
 
 
+def host_configs() -> dict:
+    """Phase 14's depth-cut copies of ``HOST_CONFIGS`` on phase 13's
+    dataset; returns {kind: config}."""
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import REPO_ROOT
+
+    configs = {}
+    for kind, base in HOST_CONFIGS.items():
+        with open(os.path.join(REPO_ROOT, "model_configs", kind,
+                               base + ".json")) as f:
+            cfg = json.load(f)
+        cfg["model_name"] = f"{base}_smoke"
+        dl = cfg["data_loader"]
+        dl["dataset"] = "synth_cnn"
+        dl["dataset_update_interval"] = HOST_CUT["dataset_update_interval"]
+        if "error_update_interval" in dl:
+            dl["error_update_interval"] = HOST_CUT["error_update_interval"]
+        dl["patch_maker_params"]["n_patches"] = HOST_CUT["n_patches"]
+        cfg["trainer"]["n_epochs"] = HOST_CUT["n_epochs"]
+        configs[kind] = cfg
+    return configs
+
+
+def full_schedule(kind: str) -> dict:
+    """The uncut config's training: epochs, train and val steps per epoch,
+    patches per set, regenerations and mining passes, counted as its
+    epoch loop counts them."""
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import REPO_ROOT
+
+    with open(os.path.join(REPO_ROOT, "model_configs", kind,
+                           HOST_CONFIGS[kind] + ".json")) as f:
+        cfg = json.load(f)
+    dl, tr = cfg["data_loader"], cfg["trainer"]
+    n = dl["patch_maker_params"]["n_patches"]
+    regen = [e for e in range(tr["n_epochs"])
+             if e % dl["dataset_update_interval"] == 0 and e != 0]
+    eui = dl.get("error_update_interval")
+    return {"epochs": tr["n_epochs"], "steps": n // tr["batch_size"],
+            "val_steps": n // 2 // tr["batch_size"], "patches": n,
+            "regenerations": len(regen),
+            "mining": len([e for e in regen if eui and e % eui == 0])}
+
+
+def check_host_training(model, kind: str, seconds: float, root: str) -> None:
+    """Finite losses, the regeneration sequence (and for the PosNet the
+    mining pass and its error maps), no patch set left; prints the host's
+    seconds."""
+    import numpy as np
+
+    log = model.logger.log
+    losses = np.asarray(log["train_loss"] + log["val_loss"])
+    waits = np.asarray(model.loader_wait_seconds)
+    name = model.config["model_name"]
+    print(f"  -p train -m {kind} ({name}): {seconds:.3f} s; epochs "
+          f"{log['epoch']}; train loss {log['train_loss']}; val loss "
+          f"{log['val_loss']}; seconds per epoch {model.epoch_seconds}; "
+          f"host seconds of the patch sets {model.stack_seconds}; "
+          f"regenerations (epoch, densities) {model.regenerations}; "
+          f"mining seconds {model.mining_seconds}; loader waits per batch "
+          f"mean {waits.mean():.4f} s, max {waits.max():.4f} s over "
+          f"{len(waits)}; adam count {model.state.opt.count}", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{kind}: non-finite losses {losses}")
+    mining = kind == "posnet"
+    if [s for s, _ in model.stack_seconds] != ["train+val", "train",
+                                               "train"] \
+            or model.regenerations != [(1, False), (2, mining)]:
+        raise AssertionError(f"{kind}: patch sets {model.stack_seconds}, "
+                             f"regenerations {model.regenerations}")
+    data = os.path.join(root, "data")
+    if os.path.exists(os.path.join(data, f"temp_{name}")):
+        raise AssertionError(f"{kind}: the temporary patch set is left")
+    maps = os.path.join(data, "error_maps", "synth_cnn", "train", name)
+    found = sorted(os.listdir(maps)) if os.path.isdir(maps) else []
+    want = [f"{i:04}.png" for i in range(CNN_TRAIN_SCENES)] if mining else []
+    if found != want or len(model.mining_seconds) != int(mining):
+        raise AssertionError(f"{kind}: error maps {found}, mining passes "
+                             f"{model.mining_seconds}")
+
+
+def host_loss_vs_cpu(model, batch, device) -> None:
+    """One host batch's float32 train-mode loss terms on the card and on
+    the CPU (float32 copies of the trained state, TF32 off)."""
+    import torch
+
+    got, want = {}, {}
+    for rep, out in ((model.train_replica(device), got),
+                     (model.train_replica("cpu"), want)):
+        x, y = rep.host_batch(batch)
+        rep.state.train(True)
+        with torch.no_grad():
+            out.update({k: float(v) for k, v in rep.loss(x, y, True)[1]
+                        .items()})
+    worst = max(abs(got[k] - w) / abs(w) for k, w in want.items())
+    print(f"  one host batch's float32 loss, card vs CPU: {got}; max rel "
+          f"diff {worst:.3e} (tol {STEP_RTOL})", flush=True)
+    if worst > STEP_RTOL:
+        raise AssertionError(f"the host batch's loss on the card disagrees "
+                             f"with the CPU: {got} vs {want}")
+
+
+def host_epoch_probe(model) -> dict:
+    """One val epoch of ``model``'s loaders timed on the host clock
+    (synchronised), then one train epoch under the profiler, timed the
+    same way inside it: the loader's waits per batch, device ms and
+    launches per step, the device's idle share (1 - device time / that
+    epoch's wall)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.host_epoch(model.val_loader, False)
+    torch.cuda.synchronize()
+    val_wall = time.perf_counter() - t0
+    first = len(model.loader_wait_seconds)
+    wall = []
+
+    def epoch():
+        t0 = time.perf_counter()
+        model.host_epoch(model.train_loader, True)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    launches, dev_ms = profiled(epoch)
+    steps = len(model.train_loader)
+    waits = np.asarray(model.loader_wait_seconds[first:])
+    return {"steps": steps, "epoch_wall_s": wall[0],
+            "loader_wait_s_per_batch": float(waits.mean()),
+            "loader_wait_share": float(waits.sum() / wall[0]),
+            "device_ms_per_step": dev_ms / steps,
+            "launches_per_step": launches / steps,
+            "idle_share": 1.0 - dev_ms / 1e3 / wall[0],
+            "val_steps": len(model.val_loader), "val_wall_s": val_wall}
+
+
+def project_full(model, probe: dict, kind: str) -> dict:
+    """Seconds of the uncut config's training, linear in this run's:
+    train and val steps at the probe's wall per step, patch sets at this
+    run's host seconds per patch, mining passes at this run's."""
+    full = full_schedule(kind)
+    n = HOST_CUT["n_patches"]
+    first = next(s for k, s in model.stack_seconds if k == "train+val")
+    regen = [s for k, s in model.stack_seconds if k == "train"]
+    first, regen = first / (n + n // 2), sum(regen) / (n * len(regen))
+    epochs = full["epochs"] * (
+        full["steps"] * probe["epoch_wall_s"] / probe["steps"]
+        + full["val_steps"] * probe["val_wall_s"] / probe["val_steps"])
+    sets = first * full["patches"] * 1.5 \
+        + regen * full["patches"] * full["regenerations"]
+    mining = full["mining"] * (model.mining_seconds[0]
+                               if model.mining_seconds else 0.0)
+    return {"schedule": full, "epochs_s": epochs, "patch_sets_s": sets,
+            "mining_s": mining, "total_s": epochs + sets + mining}
+
+
+def host_train_phase(root: str, device, configs: dict) -> int:
+    """Phase 14; returns the detection-map launches of its inference."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+    from mpp_cnn_rs_object_detection_torch.utils.png import read_unit_image
+
+    pos = configs["posnet"]
+    model, sec = run_cnn_cli(root, "posnet", pos, device, "train", "-o")
+    check_host_training(model, "posnet", sec, root)
+    # a fresh patch set (the trained one is gone) for the probes
+    with inside(root):
+        model.init_host_data()
+        host_loss_vs_cpu(model, next(iter(model.train_loader)), device)
+        probe = host_epoch_probe(model)
+        model.clean()
+    print(f"  one {str(model.state.modules['net'].dtype)[6:]} host epoch "
+          f"({probe['steps']} steps of {model.batch_size} x "
+          f"{pos['data_loader']['patch_maker_params']['patch_size']}^2): "
+          f"{probe}", flush=True)
+    print(f"  projected full {HOST_CONFIGS['posnet']} on this card and "
+          f"host: {project_full(model, probe, 'posnet')} (mining over "
+          f"{CNN_TRAIN_SCENES} scenes of {CNN_SCENE}^2)", flush=True)
+    shape, sec = run_cnn_cli(root, "shapenet", configs["shapenet"], device,
+                             "train", "-o")
+    check_host_training(shape, "shapenet", sec, root)
+
+    dk.KERNEL.launches = 0
+    inf, sec = run_cnn_cli(root, "posnet", pos, device, "infer")
+    torch.cuda.synchronize()
+    launches = dk.KERNEL.launches
+    if launches != CLI_SCENES:
+        raise AssertionError(f"-p infer -m posnet: expected {CLI_SCENES} "
+                             f"detection-map launches, counted {launches}")
+    img = read_unit_image(os.path.join(root, "data", "synth_cnn", "val",
+                                       "images", "0000.png"))
+    views = [dk.View(inf.head_planes(img), img.shape[:2], (0, False))]
+    kw = dict(mask_is_logit=True, **inf._epilogue())
+    err = compare("the host-trained PosNet's launch on val scene 0",
+                  dk.detection_map_tta(views, img.shape[:2], **kw),
+                  dk.detection_map_tta_plain(views, img.shape[:2], **kw))
+    print(f"  -p infer -m posnet (host-trained, {kw['epilogue']} "
+          f"epilogue): {sec:.3f} s; {launches} detection-map launches; "
+          f"kernel vs plain max_abs {err:.3e}", flush=True)
+    return launches
+
+
 def unet_reference_check(pos_model, device):
     """The U-Net on the card against the CPU on a small input, in fp32."""
     import numpy as np
@@ -1654,6 +1881,10 @@ def run(args, device: str = "cuda:0") -> int:
         t0 = time.perf_counter()
         launches_cnn_train = cnn_train_phase(root, device, args.seed)
         phase("13 CLI train -m posnet|shapenet, resume, infer", t0)
+        t0 = time.perf_counter()
+        launches_host_train = host_train_phase(root, device, host_configs())
+        phase("14 CLI train -m posnet|shapenet on the host pipeline, infer",
+              t0)
     finally:
         shutil.rmtree(root)
 
@@ -1665,13 +1896,14 @@ def run(args, device: str = "cuda:0") -> int:
           flush=True)
     print(f"  detection-map launches by path: in memory {launches_cnn}, CLI "
           f"infereval {launches}, CLI train {launches_train}, CLI infer of "
-          f"the trained PosNet {launches_cnn_train}; phases 7, 8, 10, 11 "
-          f"and 12 reuse the CNN results", flush=True)
+          f"the trained PosNet {launches_cnn_train}, of the host-trained "
+          f"PosNet {launches_host_train}; phases 7, 8, 10, 11 and 12 reuse "
+          f"the CNN results", flush=True)
     kernels = [{
         "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
         "replaces": dk.KERNEL.replaces,
         "launches": launches_cnn + launches + launches_train
-        + launches_cnn_train,
+        + launches_cnn_train + launches_host_train,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
     }]

@@ -7,9 +7,12 @@
     python -m mpp_cnn_rs_object_detection_torch -p make_synth [-c CONFIG]
 
 It runs on the CUDA device; ``main(argv, device="cpu")`` runs it on the
-CPU. Procedures and models of ``main.py`` that the port does not have raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item, as does training a
-CNN with a host-pipeline config (no ``data_loader.device_pipeline``).
+CPU. ``-p train -m posnet|shapenet`` trains every CNN config: on the
+device-resident patch pipeline with ``data_loader.device_pipeline``, else
+on the host pipeline (PNG patch sets, host augmentation and targets, hard
+mining for a PosNet with ``error_update_interval``). Procedures and models
+of ``main.py`` that the port does not have raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations

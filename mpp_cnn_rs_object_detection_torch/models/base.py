@@ -1,35 +1,57 @@
 """The model interface of the CLI and the CNN trainer.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/models/base.py``:
-``BaseModel`` (without ``data_preview``, ``ROADMAP.md`` item 16) and the
-device-resident path of ``PatchBasedTrainer`` (``__init_data_device__``,
-``_regen_device_stacks``, ``_train_device``), which every trained CNN config
-of the repository uses (``data_loader.device_pipeline``): patch stacks
-built on the host and kept on the device, each batch augmented and turned
-into targets there, one adam step per batch, metrics read once per epoch,
-a rolling checkpoint every epoch and ``model.msgpack`` at the end.
+``BaseModel`` (without ``data_preview``, ``ROADMAP.md`` item 16) and
+``PatchBasedTrainer`` with both of JAX's input pipelines:
 
-The JAX trainer's host pipeline (PNG patch datasets on disk, ``DataAugment``
-with CLAHE, histogram matching and shadow/fog, the host label processors,
-error-density hard mining) is not ported (``ROADMAP.md`` item 12): a
-config without ``data_loader.device_pipeline`` raises.
+  - the device-resident one (``data_loader.device_pipeline``:
+    ``regen_stacks``, ``train_epoch``, ``val_epoch``): patch stacks built
+    on the host and kept on the device, each batch augmented and turned
+    into targets there; the stacks are rebuilt after every
+    ``dataset_update_interval``-th epoch but the first and the last;
+  - the host one (every other config: ``init_host_data``,
+    ``host_epoch``): a PNG patch set written under
+    ``temp_<model_name>`` (``data/patch_making.py``), batches loaded,
+    augmented (``data/augmentation.py``) and turned into targets
+    (``data/label_processing.py``) on the host by ``BatchLoader``'s
+    threads, each batch copied to the device from pinned memory as the
+    step needs it; the train set is rewritten after every
+    ``dataset_update_interval``-th epoch but the first, the last
+    included, with the error maps of the latest hard-mining pass
+    (``sampling_densities``) once there are some; ``clean`` removes the
+    set after ``model.msgpack`` is written.
+
+Both run one adam step per batch, read the metrics once per epoch, and
+write a rolling checkpoint every epoch and ``model.msgpack`` at the end.
+JAX's host path stacks an epoch's batches before its one-dispatch scan;
+the port steps batch by batch (the same steps, without holding the epoch).
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import shutil
 import time
 from abc import ABC, abstractmethod
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mpp_cnn_rs_object_detection_torch.data.augmentation import DataAugment
+from mpp_cnn_rs_object_detection_torch.data.dataset import (
+    BatchLoader,
+    ImageDataset,
+)
 from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
     PatchStack,
     augment_batch,
     build_patch_stack,
     draw_augment_variates,
+)
+from mpp_cnn_rs_object_detection_torch.data.patch_making import (
+    make_patch_dataset,
 )
 from mpp_cnn_rs_object_detection_torch.models.checkpoint import (
     latest_checkpoint,
@@ -44,10 +66,15 @@ from mpp_cnn_rs_object_detection_torch.models.train_utils import (
     train_step,
 )
 from mpp_cnn_rs_object_detection_torch.models.unet import init_like_flax_
+from mpp_cnn_rs_object_detection_torch.utils.config import (
+    get_dataset_base_path,
+)
 
 # the JAX trainer draws epoch e's augmentation from fold_in(PRNGKey(1234), e);
 # the port seeds a generator per epoch from the same pair
 AUG_SEED = 1234
+# hard mining: error maps downscaled 8x, drawn from with half the weight
+MINING_RESCALE, MINING_WEIGHT = 1 / 8, 0.5
 
 
 class BaseModel(ABC):
@@ -62,14 +89,6 @@ class BaseModel(ABC):
     def infereval(self, subset: str = "val", **kwargs):
         self.infer(subset=subset, **kwargs)
         self.eval()
-
-
-def require_device_pipeline(config: Dict) -> None:
-    if not (config.get("data_loader") or {}).get("device_pipeline"):
-        raise NotImplementedError(
-            f"training {config.get('model_name')} needs the host patch "
-            "pipeline (no data_loader.device_pipeline in its config), which "
-            "is not ported (ROADMAP.md item 12)")
 
 
 class DeviceStack(NamedTuple):
@@ -97,15 +116,21 @@ class DeviceStack(NamedTuple):
 
 class PatchBasedTrainer:
     """The CNN trainer. The model defines ``make_train_state(dtype,
-    device)`` (builds and binds its modules), ``loss(x, y, train)`` and
-    ``targets(centers, params, valid)``, and holds ``config``,
-    ``dataset``, ``device``, ``logger`` and ``save_path``."""
+    device)`` (builds and binds its modules), ``loss(x, y, train)``,
+    ``targets(centers, params, valid)`` (device pipeline) and
+    ``label_processor()`` and ``TARGET_KEYS`` (host pipeline: its targets
+    and the keys its loss reads), and holds ``config``, ``dataset``,
+    ``device``, ``logger`` and ``save_path``."""
 
     state: TrainState
+    TARGET_KEYS: Tuple[str, ...] = ()
 
-    def init_training(self, dtype: torch.dtype, resume: bool) -> None:
+    def init_training(self, dtype: torch.dtype, resume: bool,
+                      reuse_data: bool = False) -> None:
         """Fresh flax-initialised modules (or, with ``resume``, the newest
-        checkpoint of the model store), then the train and val stacks."""
+        checkpoint of the model store), then the training data: the train
+        and val stacks, or the host pipeline's patch set (unless
+        ``reuse_data``: the set a previous run left) and loaders."""
         self.state = self.make_train_state(dtype, self.device)
         gen = torch.Generator().manual_seed(0)
         for m in self.state.modules.values():
@@ -121,12 +146,25 @@ class PatchBasedTrainer:
             if ckpt is not None:
                 self.last_epoch = load_checkpoint(ckpt, self.state)
         self.rng = np.random.default_rng(42)
-        # host seconds of each build_patch_stack: (subset, seconds)
+        # host seconds of each patch set: (subset, seconds); device
+        # pipeline: "train" / "val" stacks, host pipeline: "train+val"
+        # patch sets, then "train" ones
         self.stack_seconds: List[Tuple[str, float]] = []
         self.epoch_seconds: List[float] = []
-        self.dataset_update_interval = self.config["data_loader"][
-            "dataset_update_interval"]
-        self.regen_stacks(make_val=True)
+        dl = self.config["data_loader"]
+        self.dataset_update_interval = dl["dataset_update_interval"]
+        self.device_pipeline = bool(dl.get("device_pipeline"))
+        if self.device_pipeline:
+            self.regen_stacks(make_val=True)
+            return
+        # hard mining's error maps, once a pass has made them
+        self.error_densities: Optional[List[str]] = None
+        # (epoch, whether the error maps drew from) of each regeneration
+        self.regenerations: List[Tuple[int, bool]] = []
+        # host seconds the epoch loop waited on each batch; of each mining
+        self.loader_wait_seconds: List[float] = []
+        self.mining_seconds: List[float] = []
+        self.init_host_data(reuse_data)
 
     def regen_stacks(self, make_val: bool = False) -> None:
         pm = self.config["data_loader"]["patch_maker_params"]
@@ -204,17 +242,118 @@ class PatchBasedTrainer:
                                    self.targets(cen, par, val)))
         return stacked_metrics(steps)
 
+    # ------------------------------------------------------ host pipeline
+
+    @property
+    def temp_dataset(self) -> str:
+        return f"temp_{self.config['model_name']}"
+
+    def init_host_data(self, reuse_data: bool = False) -> None:
+        """The patch set (train and val) and its loaders: the train set
+        augmented when the config has ``augment_params``, shuffled from
+        the trainer's generator; the val set in order."""
+        self.label_processor_train = self.label_processor_val = \
+            self.label_processor()
+        if not reuse_data:
+            t0 = time.perf_counter()
+            make_patch_dataset(new_dataset=self.temp_dataset,
+                               source_dataset=self.dataset,
+                               config=self.config, make_val=True,
+                               rng=self.rng)
+            self.stack_seconds.append(("train+val",
+                                       time.perf_counter() - t0))
+        aug_params = self.config["data_loader"].get("augment_params")
+        augmenter = (DataAugment(rng=self.rng, dataset=self.dataset,
+                                 subset="train", **aug_params)
+                     if aug_params else None)
+        self.data_train = ImageDataset(
+            dataset=self.temp_dataset, subset="train", rng=self.rng,
+            augmenter=augmenter, label_processor=self.label_processor_train)
+        self.data_val = ImageDataset(
+            dataset=self.temp_dataset, subset="val", rng=self.rng,
+            label_processor=self.label_processor_val)
+        self.train_loader = BatchLoader(
+            self.data_train, batch_size=self.batch_size, shuffle=True,
+            rng=self.rng)
+        self.val_loader = BatchLoader(self.data_val,
+                                      batch_size=self.batch_size,
+                                      shuffle=False)
+
+    def host_batch(self, batch) -> Tuple[torch.Tensor, Dict]:
+        """A loader batch on the device: the patches and the loss's
+        targets, each copied from pinned memory on a GPU."""
+        pin = self.device.type == "cuda"
+
+        def move(a: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if pin:
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=pin)
+
+        x, y = batch
+        targets = {k: ([move(v) for v in y[k]] if isinstance(y[k], list)
+                       else move(y[k])) for k in self.TARGET_KEYS}
+        return move(x), targets
+
+    def host_epoch(self, loader: BatchLoader, train: bool
+                   ) -> Dict[str, np.ndarray]:
+        """One pass over ``loader``: a train or eval step per batch; the
+        seconds spent waiting on each batch go to
+        ``loader_wait_seconds``."""
+        step = train_step if train else eval_step
+        steps = []
+        t0 = time.perf_counter()
+        for batch in loader:
+            self.loader_wait_seconds.append(time.perf_counter() - t0)
+            x, y = self.host_batch(batch)
+            steps.append(step(self.state, self.loss, x, y))
+            t0 = time.perf_counter()
+        if not steps:
+            return {"loss": np.zeros(1)}
+        return stacked_metrics(steps)
+
+    def sampling_densities(self, epoch: int) -> Optional[List[str]]:
+        """The error maps the regeneration after ``epoch`` draws from:
+        none unless the model mines hard examples."""
+        return None
+
+    def regenerate(self, epoch: int) -> None:
+        """Rewrite the train patch set after ``epoch``."""
+        densities = self.sampling_densities(epoch)
+        t0 = time.perf_counter()
+        make_patch_dataset(new_dataset=self.temp_dataset,
+                           source_dataset=self.dataset, config=self.config,
+                           make_val=False, sampling_densities=densities,
+                           densities_rescale_fac=MINING_RESCALE,
+                           d_sampler_weight=MINING_WEIGHT, rng=self.rng)
+        self.stack_seconds.append(("train", time.perf_counter() - t0))
+        self.regenerations.append((epoch, densities is not None))
+        self.data_train.update_files()
+
+    def clean(self) -> None:
+        """Remove the temporary patch set."""
+        path = os.path.join(get_dataset_base_path(), self.temp_dataset)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+
+    # ------------------------------------------------------------ the loop
+
     def train(self) -> None:
         """Epochs ``last_epoch .. n_epochs - 1``: the train epoch, the val
-        epoch, a log line and a rolling checkpoint; the train stack is
-        regenerated after every ``dataset_update_interval``-th epoch but
-        the first and the last."""
+        epoch, a log line and a rolling checkpoint, then the regeneration
+        the pipeline schedules."""
         for epoch in range(self.last_epoch, self.n_epochs):
             t0 = time.perf_counter()
+            if self.device_pipeline:
+                train_metrics = self.train_epoch(epoch)
+                val_metrics = self.val_epoch()
+            else:
+                train_metrics = self.host_epoch(self.train_loader, True)
+                val_metrics = self.host_epoch(self.val_loader, False)
             train_metrics = mean_metrics(
-                {k: list(v) for k, v in self.train_epoch(epoch).items()})
+                {k: list(v) for k, v in train_metrics.items()})
             val_metrics = mean_metrics(
-                {k: list(v) for k, v in self.val_epoch().items()})
+                {k: list(v) for k, v in val_metrics.items()})
             self.epoch_seconds.append(time.perf_counter() - t0)
             print(f"[{epoch:04}] "
                   + " ".join(f"{k}: {v:.4f}" for k, v in train_metrics.items())
@@ -223,8 +362,12 @@ class PatchBasedTrainer:
                   flush=True)
             self.logger.update_train_val(epoch, train_metrics, val_metrics)
             save_checkpoint(self.save_path, self.state, epoch + 1)
-            if (epoch % self.dataset_update_interval == 0 and epoch != 0
-                    and epoch != self.n_epochs - 1):
-                self.regen_stacks()
+            if epoch % self.dataset_update_interval == 0 and epoch != 0:
+                if not self.device_pipeline:
+                    self.regenerate(epoch)
+                elif epoch != self.n_epochs - 1:
+                    self.regen_stacks()
         self.state.train(False)
         self.save()
+        if not self.device_pipeline:
+            self.clean()

@@ -1,7 +1,11 @@
 """PosNet: pointing-vector U-Net -> detection map.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/models/posnet_model.py``:
-training on the device-resident patch pipeline (``models/base.py``; the
+training (``models/base.py``: the device-resident patch pipeline, or the
+host pipeline with ``PosLabelProcessor`` targets and, every
+``error_update_interval`` epochs, hard mining: ``compute_errors`` writes
+each train scene's |target mask - predicted mask|, downscaled 8x, as the
+density PNG the next patch sets draw half their centers from; the
 DivClassifier head trained jointly under autograd, its params under
 ``"div"``), and inference (``infer_on_image``, ``vec2detection_map``,
 ``detection_map_on_image``, and at dataset level ``infer`` and
@@ -39,13 +43,20 @@ from mpp_cnn_rs_object_detection_torch.metrics.dota_eval import dota_eval
 from mpp_cnn_rs_object_detection_torch.metrics.dota_writer import (
     DOTAResultsTranslator,
 )
+from mpp_cnn_rs_object_detection_torch.data.dataset import load_annotation
 from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
     pos_targets,
 )
+from mpp_cnn_rs_object_detection_torch.data.image_ops import (
+    resize_bilinear_u8,
+)
+from mpp_cnn_rs_object_detection_torch.data.label_processing import (
+    PosLabelProcessor,
+)
 from mpp_cnn_rs_object_detection_torch.models.base import (
+    MINING_RESCALE,
     BaseModel,
     PatchBasedTrainer,
-    require_device_pipeline,
 )
 from mpp_cnn_rs_object_detection_torch.models.checkpoint import (
     latest_checkpoint,
@@ -78,6 +89,7 @@ from mpp_cnn_rs_object_detection_torch.ops.dihedral import (
 from mpp_cnn_rs_object_detection_torch.ops.nms import nms_distance
 from mpp_cnn_rs_object_detection_torch.utils.config import (
     fetch_data_paths,
+    get_dataset_base_path,
     get_inference_path,
     startup_config,
 )
@@ -109,8 +121,6 @@ def open_store(model, config: Dict, kind: str, load: bool,
     ``overwrite`` replaces an existing one); returns the config to build
     from."""
     model.save_path, model.logger = None, None
-    if train:
-        require_device_pipeline(config)
     if load or train:
         config, model.logger, model.save_path = startup_config(
             config, kind, load_model=load, overwrite=overwrite)
@@ -168,22 +178,28 @@ def infer_chunked(image: torch.Tensor, forward) -> List[torch.Tensor]:
 
 
 class PosNetModel(BaseModel, PatchBasedTrainer):
-    """A PosNet (+ DivClassifier head): trained with ``train=True``, else
-    an inference wrapper."""
+    """A PosNet (+ DivClassifier head): trained with ``train=True`` (with
+    ``reuse_data``, on the host patch set a previous run left), else an
+    inference wrapper."""
+
+    TARGET_KEYS = ("pointing_map", "mask", "center_binary_map_dil")
 
     def __init__(self, config: Dict, device=None, load: bool = False,
                  dataset: Optional[str] = None, overwrite: bool = False,
-                 train: bool = False):
+                 train: bool = False, reuse_data: bool = False):
         config = open_store(self, config, "posnet", load, dataset, overwrite,
                             train)
         self.config = config
         self.device = resolve_device(device)
         self.use_div_clf = bool(config.get("div_clf_model"))
         self.learn_mask = config.get("loss", {}).get("learn_mask", True)
+        self.error_update_interval = (config.get("data_loader") or {}).get(
+            "error_update_interval")
         self._clf_wb: Optional[Tuple[float, float]] = None
         self.state = None
         if train:
-            self.init_training(net_dtype(config), resume=load)
+            self.init_training(net_dtype(config), resume=load,
+                               reuse_data=reuse_data)
             return
         self.net = _inference_module(self._new_net(net_dtype(config)),
                                      self.device)
@@ -225,6 +241,61 @@ class PosNetModel(BaseModel, PatchBasedTrainer):
             self.config["data_loader"]["patch_maker_params"]["patch_size"],
             loss_cfg["max_distance"],
             sigma_dil=loss_cfg.get("bin_map_dil") or 0.6)
+
+    def label_processor(self) -> PosLabelProcessor:
+        loss_cfg = self.config["loss"]
+        return PosLabelProcessor(
+            max_distance=loss_cfg["max_distance"],
+            mode=loss_cfg.get("target_mode", "uvec"),
+            n_classes=loss_cfg.get("n_classes"),
+            sigma_dil=loss_cfg.get("bin_map_dil"))
+
+    def sampling_densities(self, epoch: int) -> Optional[List[str]]:
+        """Hard mining: a new pass after every ``error_update_interval``-th
+        epoch (among those that regenerate); later regenerations reuse the
+        latest pass's maps."""
+        if self.error_update_interval is not None \
+                and epoch % self.error_update_interval == 0:
+            logging.info("computing error densities for hard mining")
+            t0 = time.perf_counter()
+            self.error_densities = self.compute_errors(
+                rescale_fac=MINING_RESCALE)
+            self.mining_seconds.append(time.perf_counter() - t0)
+        return self.error_densities
+
+    def compute_errors(self, rescale_fac: float = 1.0) -> List[str]:
+        """|target mask - predicted mask| of every train scene (the U-Net
+        in eval mode, on the device), downscaled by ``rescale_fac`` as
+        Pillow's bilinear resize does, written as
+        ``<dataset_path>/error_maps/<dataset>/train/<model>/<id>.png``;
+        returns the files."""
+        model_name = os.path.split(self.save_path)[1]
+        densities_dir = os.path.join(get_dataset_base_path(), "error_maps",
+                                     self.dataset, "train", model_name)
+        make_if_not_exist(densities_dir, recursive=True)
+        files = []
+        paths = fetch_data_paths(self.dataset, "train", metadata=False)
+        self.state.train(False)
+        for pf, lf in zip(paths["images"], paths["annotations"]):
+            img = read_unit_image(pf)
+            labels = load_annotation(lf)
+            _, label = self.label_processor_train.process(
+                img, labels["centers"], labels["parameters"], idx=0)
+            mask = self.infer_on_image(img)[0].cpu().numpy()
+            error = np.abs(label["mask"] - mask)
+            if rescale_fac != 1:
+                h, w = error.shape
+                nh = max(1, int(h * rescale_fac))
+                nw = max(1, int(w * rescale_fac))
+                error = resize_bilinear_u8((error * 255).astype(np.uint8),
+                                           (nw, nh)).astype(np.float32) \
+                    / 255.0
+            file = os.path.join(densities_dir,
+                                f"{ID_RE.match(os.path.split(pf)[1]).group(1)}"
+                                ".png")
+            save_unit_image(file, error)
+            files.append(file)
+        return files
 
     def loss(self, x: torch.Tensor, y: Dict, train: bool):
         """(B, P, P, 3) images -> (loss, metrics). The DivClassifier head

@@ -1,8 +1,9 @@
 """ShapeNet: per-pixel mark distributions (size, ratio, angle).
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/models/shapenet_model.py``:
-training on the device-resident patch pipeline (``models/base.py``; painted
-class targets in ``mask_mode`` "shapes" or "gaussian", the masked pixel CE
+training (``models/base.py``: the device-resident patch pipeline, or the
+host pipeline with ``ShapeLabelProcessor`` targets; class targets in
+``mask_mode`` "shapes" or "gaussian", the masked pixel CE
 with optional focal weighting and ordinal label smoothing) and inference
 (``infer_on_image``, ``dist_maps_on_image``, and at dataset level ``infer``
 and ``eval``): three (H, W, C) softmax maps, averaged over the dihedral group
@@ -34,6 +35,9 @@ from mpp_cnn_rs_object_detection_torch.metrics.dota_writer import (
 )
 from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
     shape_targets,
+)
+from mpp_cnn_rs_object_detection_torch.data.label_processing import (
+    ShapeLabelProcessor,
 )
 from mpp_cnn_rs_object_detection_torch.models.base import (
     BaseModel,
@@ -82,12 +86,14 @@ from mpp_cnn_rs_object_detection_torch.utils.png import read_unit_image
 
 
 class ShapeNetModel(BaseModel, PatchBasedTrainer):
-    """A ShapeNet: trained with ``train=True``, else an inference
-    wrapper."""
+    """A ShapeNet: trained with ``train=True`` (with ``reuse_data``, on
+    the host patch set a previous run left), else an inference wrapper."""
+
+    TARGET_KEYS = ("value_class_map", "loss_mask")
 
     def __init__(self, config: Dict, device=None, load: bool = False,
                  dataset: Optional[str] = None, overwrite: bool = False,
-                 train: bool = False):
+                 train: bool = False, reuse_data: bool = False):
         config = open_store(self, config, "shapenet", load, dataset,
                             overwrite, train)
         self.config = config
@@ -101,7 +107,8 @@ class ShapeNetModel(BaseModel, PatchBasedTrainer):
         )
         self.state = None
         if train:
-            self.init_training(net_dtype(config), resume=load)
+            self.init_training(net_dtype(config), resume=load,
+                               reuse_data=reuse_data)
             return
         self.net = _inference_module(self._new_net(net_dtype(config)),
                                      self.device)
@@ -128,6 +135,18 @@ class ShapeNetModel(BaseModel, PatchBasedTrainer):
             self.config["data_loader"]["patch_maker_params"]["patch_size"],
             self.mappings, mask_mode=loss_cfg.get("mask_mode", "shapes"),
             mask_sigma=loss_cfg.get("mask_sigma") or "auto")
+
+    def label_processor(self) -> ShapeLabelProcessor:
+        """Host targets; ``class_perturbation`` draws from the trainer's
+        generator."""
+        loss_cfg = self.config["loss"]
+        return ShapeLabelProcessor(
+            mappings=self.mappings,
+            mask_mode=loss_cfg.get("mask_mode", "shapes"),
+            mask_sigma=loss_cfg.get("mask_sigma"),
+            mask_cutoff_dist=loss_cfg.get("mask_cutoff_dist"),
+            class_perturbation=loss_cfg.get("class_perturbation"),
+            rng=self.rng)
 
     def loss(self, x: torch.Tensor, y: Dict, train: bool):
         """(B, P, P, 3) images -> (loss, metrics)."""

@@ -1,2 +1,2 @@
 """Array operations: divergence, the detection-map kernel, geometry,
-mappings, dihedral TTA and NMS."""
+mappings, dihedral TTA, NMS and the host density sampler."""

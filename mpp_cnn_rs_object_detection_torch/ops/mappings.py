@@ -1,7 +1,7 @@
 """Value <-> class-bin mappings for the 32-bin mark distributions.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/ops/mappings.py`` (the
-parts the inference path uses): bin left edges
+parts the inference path and the host training targets use): bin left edges
 ``linspace(v_min, v_max, n+1)[:-1]``, ``value_to_class`` floors and clips,
 cyclic mappings wrap, and detections decode at the bin CENTER.
 """
@@ -66,3 +66,14 @@ def default_mappings(n_classes: int = 32, size_min: float = 0.0,
         ValueMapping(n_classes, 0.0, 1.0),
         ValueMapping(n_classes, 0.0, np.pi, is_cyclic=True),
     ]
+
+
+def values_to_class_id(values, mappings: List[ValueMapping]):
+    """Per-mark class ids of a list of (size, ratio, angle) tuples: one
+    array per mapping (a list of per-feature values maps element-wise)."""
+    if len(values) == 0:
+        return []
+    arr = np.asarray(values, dtype=np.float64)
+    if arr.ndim == 2:
+        return [m.value_to_class(arr[:, i]) for i, m in enumerate(mappings)]
+    return [m.value_to_class(v) for v, m in zip(values, mappings)]

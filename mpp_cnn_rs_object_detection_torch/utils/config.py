@@ -119,6 +119,16 @@ def fetch_data_paths(dataset: str, subset: str, images=True, annotations=True,
     return res
 
 
+def check_data_match(paths: List[str]) -> int:
+    """The numeric id that a group of image, annotation and metadata paths
+    share; raises if they do not share one."""
+    ids = [re.match(r"([0-9]+)\.[a-zA-Z]+", os.path.split(p)[1]).group(1)
+           for p in paths]
+    if any(i != ids[0] for i in ids):
+        raise ValueError(f"id mismatch in {paths}")
+    return int(ids[0])
+
+
 def get_inference_path(model_name: str, dataset: str, subset: str) -> str:
     return os.path.join(
         get_dataset_base_path(), "inference", dataset, subset, model_name

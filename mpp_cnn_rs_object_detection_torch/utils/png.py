@@ -5,7 +5,9 @@ PIL, which the GPU host lacks. The reader takes 8-bit, non-interlaced gray
 (``L``), gray + alpha, RGB and RGBA images with any of the five row filters
 (PIL's writer picks a filter per row). It returns the array PIL's
 ``np.asarray(Image.open(path))`` gives: (H, W) for gray, (H, W, C)
-otherwise. The writer stores 8-bit RGB rows with filter 0.
+otherwise. The writer stores 8-bit RGB rows with filter 0, deflated at
+zlib level 6 unless the caller gives another (the training patch sets,
+rewritten every few epochs, use 1, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -68,6 +70,16 @@ def unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def png_shape(path: str) -> tuple:
+    """(height, width) from a PNG's header, without decoding it."""
+    with open(path, "rb") as f:
+        head = f.read(len(_SIGNATURE) + 16)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
 def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
@@ -98,8 +110,8 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def write_png(path: str, image: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 RGB array."""
+def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
+    """Write an (H, W, 3) uint8 RGB array, deflated at zlib ``level``."""
     image = np.asarray(image)
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"png: write takes (H, W, 3) uint8, got "
@@ -111,7 +123,7 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(_SIGNATURE
                 + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
                                                0))
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
                 + _chunk(b"IEND", b""))
 
 

@@ -135,6 +135,30 @@ def test_png_written_reads_back_through_pil(tmp_path, h, w):
             png.write_png(path, bad)
 
 
+@pytest.mark.parametrize("level", [1, 6])
+def test_png_writer_compression_level(tmp_path, level):
+    """Level 1 (the training patch sets, as the JAX package writes them)
+    and the default 6: the IDAT stream is zlib's at that level over the
+    filter-0 rows, the header is read without decoding, and PIL reads the
+    pixels back."""
+    img = _mixed_image(37, 21, 3, seed=level)
+    path = str(tmp_path / f"level{level}.png")
+    if level == 6:
+        png.write_png(path, img)
+    else:
+        png.write_png(path, img, level=level)
+    with open(path, "rb") as f:
+        data = f.read()
+    start = data.index(b"IDAT")
+    (n,) = struct.unpack(">I", data[start - 4:start])
+    rows = np.concatenate([np.zeros((37, 1), np.uint8),
+                           img.reshape(37, -1)], axis=1)
+    assert data[start + 4:start + 4 + n] == zlib.compress(rows.tobytes(),
+                                                          level)
+    assert png.png_shape(path) == (37, 21)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+
+
 def test_png_refuses_what_it_does_not_read(tmp_path):
     for name, pil in (
             ("palette", Image.fromarray(np.zeros((4, 4, 3), np.uint8))
