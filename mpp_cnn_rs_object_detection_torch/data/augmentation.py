@@ -23,6 +23,8 @@ from __future__ import annotations
 import functools
 import glob
 import os
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict
 
@@ -61,6 +63,12 @@ def flip_points(centers: np.ndarray, angles: np.ndarray, shape_hw, axis: int):
         out[..., 1] = w - 1 - out[..., 1]
         new_angles = (-angles) % np.pi
     return out, new_angles
+
+
+# bytes of sorted histogram-match scenes a ``DataAugment`` keeps (the
+# most recently used ones; a scene is decoded and sorted again after it
+# leaves, as the JAX package loads it on every draw)
+REFERENCE_CACHE_BYTES = 1 << 30
 
 
 @functools.lru_cache(maxsize=8)
@@ -131,16 +139,32 @@ class DataAugment:
                     f"{self.subset}")
         if self.aug_level not in ("medium", "strong"):
             raise ValueError(f"aug_level {self.aug_level}")
-        self._references: Dict[int, list] = {}
+        self._references: "OrderedDict[int, list]" = OrderedDict()
+        self._reference_bytes = 0
+        self._lock = threading.Lock()
 
     def _reference(self, idx: int):
-        """The sorted channels of histogram-match scene ``idx``, sorted
-        once (``draw`` caches them in the caller's thread)."""
-        if idx not in self._references:
-            ref = load_image(self.hist_match_images_paths[idx])
-            self._references[idx] = [np.sort(ref[..., ch].ravel())
-                                     for ch in range(ref.shape[2])]
-        return self._references[idx]
+        """The sorted channels of histogram-match scene ``idx``, from a
+        least-recently-used cache of ``REFERENCE_CACHE_BYTES`` shared by
+        the loader's threads (a scene two threads miss at once is sorted
+        twice, to the same arrays)."""
+        with self._lock:
+            ref = self._references.get(idx)
+            if ref is not None:
+                self._references.move_to_end(idx)
+                return ref
+        image = load_image(self.hist_match_images_paths[idx])
+        ref = [np.sort(image[..., ch].ravel())
+               for ch in range(image.shape[2])]
+        with self._lock:
+            if idx not in self._references:
+                self._references[idx] = ref
+                self._reference_bytes += sum(a.nbytes for a in ref)
+            while (self._reference_bytes > REFERENCE_CACHE_BYTES
+                   and len(self._references) > 1):
+                _, old = self._references.popitem(last=False)
+                self._reference_bytes -= sum(a.nbytes for a in old)
+        return ref
 
     # --- drawing ----------------------------------------------------------
 
@@ -158,7 +182,6 @@ class DataAugment:
             d["hist"] = {"ref": int(rng.integers(
                 len(self.hist_match_images_paths))),
                 "blend": rng.uniform(0.1, 0.75)}
-            self._reference(d["hist"]["ref"])
         if strong:
             if rng.random() < 0.5:
                 n_vert = rng.integers(3, 6)

@@ -35,7 +35,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from mpp_cnn_rs_object_detection_torch.utils.config import fetch_data_paths
-from mpp_cnn_rs_object_detection_torch.utils.png import read_png
+from mpp_cnn_rs_object_detection_torch.utils.png import png_header, read_png
 
 
 def load_image(path: str) -> np.ndarray:
@@ -46,6 +46,12 @@ def load_image(path: str) -> np.ndarray:
     if arr.max() > 1.0:
         arr = arr / 255.0
     return arr[..., :3]
+
+
+def image_shape(path: str) -> tuple:
+    """The shape of ``load_image(path)``, read from the PNG's header."""
+    h, w, c = png_header(path)
+    return (h, min(w, 3)) if c == 1 else (h, w, min(c, 3))
 
 
 def load_annotation(path: str) -> dict:
@@ -112,7 +118,9 @@ class LabelProcessor:
 
 class ImageDataset:
     """One file = one item, decoded once per patch set (``update_files``
-    reads the regenerated set and drops the decoded copies)."""
+    reads the regenerated set and drops the decoded copies). ``draw``
+    reads only the item's PNG header and annotation; the loader's threads
+    decode the image in ``apply``."""
 
     def __init__(self, dataset: str, subset: str,
                  rng: Optional[np.random.Generator],
@@ -126,36 +134,45 @@ class ImageDataset:
         self.rgb = rgb
         self.label_processor = label_processor
         self.cache_enabled = cache
-        self._cache: Dict[int, tuple] = {}
+        self._images: Dict[int, np.ndarray] = {}
+        self._labels: Dict[int, dict] = {}
 
     def update_files(self):
         self.paths = fetch_data_paths(self.dataset, self.subset,
                                       metadata=False)
-        self._cache.clear()
+        self._images.clear()
+        self._labels.clear()
 
     def __len__(self):
         return len(self.paths["images"])
 
-    def _load_raw(self, item):
-        if self.cache_enabled and item in self._cache:
-            return self._cache[item]
-        raw = (load_image(self.paths["images"][item]),
-               load_annotation(self.paths["annotations"][item]))
+    def _cached(self, cache: Dict, item, load):
+        if self.cache_enabled and item in cache:
+            return cache[item]
+        value = load()
         if self.cache_enabled:
-            self._cache[item] = raw
-        return raw
+            cache[item] = value
+        return value
+
+    def _image(self, item) -> np.ndarray:
+        return self._cached(self._images, item,
+                            lambda: load_image(self.paths["images"][item]))
+
+    def _annotation(self, item) -> dict:
+        return self._cached(
+            self._labels, item,
+            lambda: load_annotation(self.paths["annotations"][item]))
 
     def draw(self, item) -> tuple:
         """The item's augmentation and label draws, in that order."""
-        patch, labels = self._load_raw(item)
-        n_points = len(labels["centers"])
-        aug = (self.augmenter.draw(patch.shape)
+        n_points = len(self._annotation(item)["centers"])
+        aug = (self.augmenter.draw(image_shape(self.paths["images"][item]))
                if self.augmenter is not None else None)
         return aug, self.label_processor.draw(n_points)
 
     def apply(self, item, draws: tuple):
         aug, lab = draws
-        patch, labels = self._load_raw(item)
+        patch, labels = self._image(item), self._annotation(item)
         centers, params = labels["centers"], labels["parameters"]
         if self.augmenter is not None:
             patch, centers, params, _ = self.augmenter.apply(

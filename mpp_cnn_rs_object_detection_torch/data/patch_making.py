@@ -51,7 +51,7 @@ from mpp_cnn_rs_object_detection_torch.utils.files import (
     NumpyEncoder,
     make_if_not_exist,
 )
-from mpp_cnn_rs_object_detection_torch.utils.png import png_shape, write_png
+from mpp_cnn_rs_object_detection_torch.utils.png import png_header, write_png
 
 PATCH_PNG_LEVEL = 1
 
@@ -135,7 +135,7 @@ def _make_patches(source_dataset: str, subset: str, new_dataset: str,
         if n_local == 0:
             continue
         labels = load_annotation(paths["annotations"][i])
-        shape = np.array(png_shape(paths["images"][i]))
+        shape = np.array(png_header(paths["images"][i])[:2])
         anchors = [sampler.sample_patch_center(
             image_id=i, shape=shape, centers=labels["centers"])
             for _ in range(int(n_local))]

@@ -125,12 +125,10 @@ class PatchBasedTrainer:
     state: TrainState
     TARGET_KEYS: Tuple[str, ...] = ()
 
-    def init_training(self, dtype: torch.dtype, resume: bool,
-                      reuse_data: bool = False) -> None:
+    def init_training(self, dtype: torch.dtype, resume: bool) -> None:
         """Fresh flax-initialised modules (or, with ``resume``, the newest
         checkpoint of the model store), then the training data: the train
-        and val stacks, or the host pipeline's patch set (unless
-        ``reuse_data``: the set a previous run left) and loaders."""
+        and val stacks, or the host pipeline's patch set and loaders."""
         self.state = self.make_train_state(dtype, self.device)
         gen = torch.Generator().manual_seed(0)
         for m in self.state.modules.values():
@@ -164,7 +162,7 @@ class PatchBasedTrainer:
         # host seconds the epoch loop waited on each batch; of each mining
         self.loader_wait_seconds: List[float] = []
         self.mining_seconds: List[float] = []
-        self.init_host_data(reuse_data)
+        self.init_host_data()
 
     def regen_stacks(self, make_val: bool = False) -> None:
         pm = self.config["data_loader"]["patch_maker_params"]
@@ -248,20 +246,17 @@ class PatchBasedTrainer:
     def temp_dataset(self) -> str:
         return f"temp_{self.config['model_name']}"
 
-    def init_host_data(self, reuse_data: bool = False) -> None:
+    def init_host_data(self) -> None:
         """The patch set (train and val) and its loaders: the train set
         augmented when the config has ``augment_params``, shuffled from
         the trainer's generator; the val set in order."""
         self.label_processor_train = self.label_processor_val = \
             self.label_processor()
-        if not reuse_data:
-            t0 = time.perf_counter()
-            make_patch_dataset(new_dataset=self.temp_dataset,
-                               source_dataset=self.dataset,
-                               config=self.config, make_val=True,
-                               rng=self.rng)
-            self.stack_seconds.append(("train+val",
-                                       time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        make_patch_dataset(new_dataset=self.temp_dataset,
+                           source_dataset=self.dataset, config=self.config,
+                           make_val=True, rng=self.rng)
+        self.stack_seconds.append(("train+val", time.perf_counter() - t0))
         aug_params = self.config["data_loader"].get("augment_params")
         augmenter = (DataAugment(rng=self.rng, dataset=self.dataset,
                                  subset="train", **aug_params)

@@ -178,15 +178,14 @@ def infer_chunked(image: torch.Tensor, forward) -> List[torch.Tensor]:
 
 
 class PosNetModel(BaseModel, PatchBasedTrainer):
-    """A PosNet (+ DivClassifier head): trained with ``train=True`` (with
-    ``reuse_data``, on the host patch set a previous run left), else an
-    inference wrapper."""
+    """A PosNet (+ DivClassifier head): trained with ``train=True``, else
+    an inference wrapper."""
 
     TARGET_KEYS = ("pointing_map", "mask", "center_binary_map_dil")
 
     def __init__(self, config: Dict, device=None, load: bool = False,
                  dataset: Optional[str] = None, overwrite: bool = False,
-                 train: bool = False, reuse_data: bool = False):
+                 train: bool = False):
         config = open_store(self, config, "posnet", load, dataset, overwrite,
                             train)
         self.config = config
@@ -198,8 +197,7 @@ class PosNetModel(BaseModel, PatchBasedTrainer):
         self._clf_wb: Optional[Tuple[float, float]] = None
         self.state = None
         if train:
-            self.init_training(net_dtype(config), resume=load,
-                               reuse_data=reuse_data)
+            self.init_training(net_dtype(config), resume=load)
             return
         self.net = _inference_module(self._new_net(net_dtype(config)),
                                      self.device)

@@ -86,14 +86,14 @@ from mpp_cnn_rs_object_detection_torch.utils.png import read_unit_image
 
 
 class ShapeNetModel(BaseModel, PatchBasedTrainer):
-    """A ShapeNet: trained with ``train=True`` (with ``reuse_data``, on
-    the host patch set a previous run left), else an inference wrapper."""
+    """A ShapeNet: trained with ``train=True``, else an inference
+    wrapper."""
 
     TARGET_KEYS = ("value_class_map", "loss_mask")
 
     def __init__(self, config: Dict, device=None, load: bool = False,
                  dataset: Optional[str] = None, overwrite: bool = False,
-                 train: bool = False, reuse_data: bool = False):
+                 train: bool = False):
         config = open_store(self, config, "shapenet", load, dataset,
                             overwrite, train)
         self.config = config
@@ -107,8 +107,7 @@ class ShapeNetModel(BaseModel, PatchBasedTrainer):
         )
         self.state = None
         if train:
-            self.init_training(net_dtype(config), resume=load,
-                               reuse_data=reuse_data)
+            self.init_training(net_dtype(config), resume=load)
             return
         self.net = _inference_module(self._new_net(net_dtype(config)),
                                      self.device)

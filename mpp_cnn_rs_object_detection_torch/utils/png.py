@@ -70,14 +70,18 @@ def unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def png_shape(path: str) -> tuple:
-    """(height, width) from a PNG's header, without decoding it."""
+def png_header(path: str) -> tuple:
+    """(height, width, samples per pixel) from a PNG's header, without
+    decoding it."""
     with open(path, "rb") as f:
-        head = f.read(len(_SIGNATURE) + 16)
+        head = f.read(len(_SIGNATURE) + 18)
     if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
         raise ValueError(f"{path}: not a PNG file")
     w, h = struct.unpack(">II", head[16:24])
-    return h, w
+    color = head[25]
+    if color not in _CHANNELS:
+        raise ValueError(f"{path}: color type {color} is not read")
+    return h, w, _CHANNELS[color]
 
 
 def read_png(path: str) -> np.ndarray:

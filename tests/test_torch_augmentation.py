@@ -15,6 +15,7 @@ JAX package:
 """
 
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import cv2
 import numpy as np
@@ -178,3 +179,28 @@ def test_draws_then_apply_equal_transform(hist_ws, monkeypatch):
         got = applied[11 - i]
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_reference_cache_is_bounded_and_gives_the_same_items(hist_ws,
+                                                             monkeypatch):
+    """With room for one sorted scene, items applied by 4 threads equal
+    those of the default cache, and the cache never holds more than its
+    bytes."""
+    monkeypatch.chdir(hist_ws)
+    kw = dict(dataset="refs", subset="train", hist_match_images=True,
+              aug_level="strong")
+    a = taug.DataAugment(rng=np.random.default_rng(4), **kw)
+    items = _items(24, 6)
+    want = [a.transform(*item) for item in items]
+    scene = 80 * 72 * 3 * 4  # one synthetic scene's sorted float32 channels
+    monkeypatch.setattr(taug, "REFERENCE_CACHE_BYTES", scene)
+    b = taug.DataAugment(rng=np.random.default_rng(4), **kw)
+    draws = [b.draw(p.shape) for p, _, _ in items]
+    assert len({d["hist"]["ref"] for d in draws if "hist" in d}) > 1
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(lambda i: b.apply(*items[i], draws[i]),
+                            range(len(items))))
+    assert len(b._references) == 1 and b._reference_bytes == scene
+    for g, w in zip(got, want):
+        for x, y in zip(g[:3], w[:3]):
+            np.testing.assert_array_equal(x, y)

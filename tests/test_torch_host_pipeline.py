@@ -461,18 +461,21 @@ def test_cli_trains_host_configs_like_jax(ws, monkeypatch, caplog, kind):
     assert not (ws / "data" / f"temp_{tname}").exists()
 
     # each package resumes the other's files: the port JAX's store, JAX
-    # the port's (optimizer included, no fallback)
+    # the port's (optimizer included, no fallback) through the restore its
+    # constructor runs on ``load=True`` (with its trained state as the
+    # template, which has the fresh state's tree)
     tcls = type(tm)
     back = tcls(_config(kind, jname, **mining), device="cpu", load=True,
                 train=True)
     assert back.last_epoch == 2 and back.state.opt.count == 8
     port_clean(back)
     with caplog.at_level(logging.WARNING):
-        jback = jcls(_config(kind, tname, **mining), load=True, train=False)
+        jback, jepoch = jtu.load_checkpoint(
+            jtu.latest_checkpoint(str(tstore)), jm.state)
     assert not [r for r in caplog.records if "opt_state" in r.getMessage()]
-    assert jback.last_epoch == 2
+    assert jepoch == 2
     port = _leaves(tm.state.to_jax())
-    restored = _leaves(_jax_tree(jback.state))
+    restored = _leaves(_jax_tree(jback))
     assert set(port) == set(restored)
     for k in port:
         np.testing.assert_array_equal(restored[k], port[k], err_msg=k)

@@ -84,6 +84,19 @@ def test_png_reads_pil_files(tmp_path, mode, c):
         Image.open(path)))
 
 
+@pytest.mark.parametrize("mode,c", [("RGB", 3), ("RGBA", 4), ("L", 1),
+                                    ("LA", 2)])
+def test_png_header_gives_the_loaded_shape(tmp_path, mode, c):
+    """``png_header`` reads (H, W, samples) without decoding, and the host
+    loader's ``image_shape`` gives the shape ``load_image`` returns."""
+    from mpp_cnn_rs_object_detection_torch.data import dataset as tds
+
+    path = str(tmp_path / "pil.png")
+    Image.fromarray(_mixed_image(48, 67, c, seed=c)).save(path)
+    assert png.png_header(path) == (48, 67, c)
+    assert tds.image_shape(path) == tds.load_image(path).shape
+
+
 def _encode(img, filters):
     """A PNG of an (h, w, 3) uint8 image whose row i uses filter
     ``filters[i % len(filters)]`` (all five types, Average included, which
@@ -155,7 +168,7 @@ def test_png_writer_compression_level(tmp_path, level):
                            img.reshape(37, -1)], axis=1)
     assert data[start + 4:start + 4 + n] == zlib.compress(rows.tobytes(),
                                                           level)
-    assert png.png_shape(path) == (37, 21)
+    assert png.png_header(path) == (37, 21, 3)
     np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
 
 
