@@ -118,11 +118,23 @@ Phases (each prints one line with its seconds; any failure raises):
      epochs, steps, regenerations and mining passes); ``-p train -m
      shapenet``; and
      ``-p infer -m posnet`` with the trained PosNet: one detection-map
-     launch per val scene, one held against its plain version.
+     launch per val scene, one held against its plain version;
+  15. in the same workspace: ``-p translate_dota`` on a raw DOTA tree
+     written here (``RAW_DOTA``: 2 train and 2 val synthetic scenes of
+     ``RAW_DOTA_HW``, GSD 0.30, 0.25 and 0.5 and one banned source; the
+     translated counts, shapes and objects), ``-p translate_cowc`` on a
+     raw COWC tree of ``COWC_SCENES`` scenes, ``-p check_div`` (its one
+     kernel launch against the plain version within the tolerance), ``-p
+     infereval -m oracle`` on the translated val set (AP 1.000 at every
+     IoU), then the CNN-free data term (``CONTRAST_SETUP``: craciun2,
+     manual weights) on the flagship's CNN results: a copy of
+     ``MANUAL_CONFIG`` for one 341-superstep segment per scene (finite
+     APs; the launches and device ms of one superstep alone) and a copy
+     of ``TILED_CONFIG`` for ``CONTRAST_TILED`` sequential steps.
 Then one JSON line per kernel table (its launches: every path's, each
-counted from 0 -- phases 3, 6, 9, 13 and 14; the others reuse CNN results), the
-card's name and power limit, and the result line ``{"ok": true, "device":
-{...}}`` last.
+counted from 0 -- phases 3, 6, 9, 13, 14 and 15's ``check_div``; the
+others reuse CNN results), the card's name and power limit, and the result
+line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -145,9 +157,11 @@ TRAIN_EPOCHS, TRAIN_CROPS = 2, 16
 # phase 10: the legacy manual mode in exact scene mode
 MANUAL_CONFIG = "mpp_exact_smoke"
 # phase 11: the tiled scene mode, depth-cut (the full budget is 30,000
-# burn-in moves and 2 sampling intervals of 128, in segments of 4,096)
+# burn-in moves and 2 sampling intervals of 128, in segments of 4,096);
+# 512 burn-in moves since phase 15 was added (1,024 before), to keep the
+# script within its 600 s
 TILED_CONFIG = "mpp_hrcM"
-TILED_BURN_IN, TILED_SEGMENT = 1024, 512
+TILED_BURN_IN, TILED_SEGMENT = 512, 512
 # its resume check: 256 burn-in moves + 2 x 128, killed after 256
 RESUME_BURN_IN, RESUME_SEGMENT = 256, 256
 # phase 12: the superstep's split/merge pair, trained
@@ -195,6 +209,23 @@ STEP_RTOL, STEP_PARAM_TOL, STEP_NOISE_TOL = 1e-4, 1e-4, 2e-3
 HOST_CONFIGS = {"posnet": "config_pos", "shapenet": "config_shape"}
 HOST_CUT = {"n_patches": 512, "n_epochs": 3, "dataset_update_interval": 1,
             "error_update_interval": 2}
+# phase 15: raw DOTA scenes (subset, GSD, source): a fractional rescale
+# (0.30), an integer one (0.25), none (0.5) and a banned source
+RAW_DOTA = [("train", "0.30", "GoogleEarth"), ("train", "0.25", "GF-2"),
+            ("val", "0.5", "GoogleEarth"), ("val", "0.30", "Aerial")]
+RAW_DOTA_HW, RAW_DOTA_OBJECTS = (1500, 1600), 120
+COWC_SCENES, COWC_HW, COWC_CARS = 3, (1000, 1200), 50
+# the CNN-free data term: craciun2 contrast, manual weights over its names
+CONTRAST_SETUP = {
+    "energy_setup": "contrast",
+    "energy_setup_params": {"contrast_type": "craciun2"},
+    "manual": {"threshold": 0.0, "indicator_energy": "ContrastEnergy",
+               "weights": {"ContrastEnergy": 1.0, "OverlapPriorEnergy": 0.6,
+                           "AlignmentPriorEnergy": 0.05,
+                           "AreaPriorEnergy": 0.2,
+                           "RatioPriorEnergy": 0.1}}}
+# its tiled copy: steps in all (one segment), burn-in, sample interval
+CONTRAST_TILED = (256, 128, 64)
 # ~50 ms of the card's clock: longer than the host takes to queue a timed
 # run of calls
 SLEEP_CYCLES = 100_000_000
@@ -525,16 +556,22 @@ def inside(root: str):
         os.chdir(cwd)
 
 
-def run_cli(root: str, cfg_path: str, device, procedure: str = "infereval"):
-    """``-p procedure -m mpp -c cfg_path`` from ``root``; returns the model
-    and the seconds it took."""
+def run_procedure(root: str, argv, device):
+    """The port's command line with ``argv`` from ``root``; returns what
+    it returned and the seconds it took."""
     from mpp_cnn_rs_object_detection_torch.__main__ import main as cli_main
 
     with inside(root):
         t0 = time.perf_counter()
-        model = cli_main(["-p", procedure, "-m", "mpp", "-c", cfg_path],
-                         device=device)
-        return model, time.perf_counter() - t0
+        out = cli_main(list(argv), device=device)
+        return out, time.perf_counter() - t0
+
+
+def run_cli(root: str, cfg_path: str, device, procedure: str = "infereval"):
+    """``-p procedure -m mpp -c cfg_path`` from ``root``; returns the model
+    and the seconds it took."""
+    return run_procedure(root, ["-p", procedure, "-m", "mpp", "-c",
+                                cfg_path], device)
 
 
 def check_exports(root: str, model, name: str) -> dict:
@@ -1714,6 +1751,241 @@ def host_train_phase(root: str, device, configs: dict) -> int:
     return launches
 
 
+def write_raw_dota(raw: str, seed: int) -> list:
+    """Phase 15's raw DOTA tree: the ``RAW_DOTA`` scenes of
+    ``RAW_DOTA_HW`` (a synthetic scene each, ``--seed``) with up to
+    ``RAW_DOTA_OBJECTS`` vehicle polygons (integer coordinates in the first
+    scene, one decimal in the others) and 10 planes, their meta files.
+    Returns each scene's vehicle count."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.data.synth import (
+        synthetic_scene,
+    )
+    from mpp_cnn_rs_object_detection_torch.ops.geometry import (
+        rect_to_poly_np,
+        sra_to_wla,
+    )
+    from mpp_cnn_rs_object_detection_torch.utils.png import write_png
+
+    h, w = RAW_DOTA_HW
+    vehicles = []
+    for i, (subset, gsd, source) in enumerate(RAW_DOTA):
+        for d in ("images", f"DOTA-v2.0_{subset}", "meta"):
+            os.makedirs(os.path.join(raw, subset, d), exist_ok=True)
+        image, centers, marks = synthetic_scene(
+            h, w, RAW_DOTA_OBJECTS + 10, seed=seed + i)
+        write_png(os.path.join(raw, subset, "images", f"P{i:04}.png"),
+                  (image * 255).astype(np.uint8), level=1)
+        short, long, angle = sra_to_wla(marks[:, 0], marks[:, 1],
+                                        marks[:, 2])
+        polys = rect_to_poly_np(centers, short, long, angle)[..., ::-1]
+        n_vehicles = max(len(polys) - 10, 0)
+        vehicles.append(n_vehicles)
+        lines = []
+        for j, p in enumerate(polys.reshape(len(polys), 8)):
+            coords = (" ".join(str(int(round(v))) for v in p) if i == 0
+                      else " ".join(f"{v:.1f}" for v in p))
+            cat = ("plane" if j >= n_vehicles else
+                   ("small-vehicle", "large-vehicle")[j % 2])
+            lines.append(f"{coords} {cat} {j % 3 == 0:d}")
+        with open(os.path.join(raw, subset, f"DOTA-v2.0_{subset}",
+                               f"P{i:04}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open(os.path.join(raw, subset, "meta", f"P{i:04}.txt"),
+                  "w") as f:
+            f.write(f"acquisition dates:2017-08-13\nimagesource:{source}\n"
+                    f"gsd:{gsd}\n")
+    return vehicles
+
+
+def write_raw_cowc(raw: str, seed: int) -> list:
+    """Phase 15's raw COWC tree: ``COWC_SCENES`` RGB scenes of ``COWC_HW``
+    with up to ``COWC_CARS`` cars each, marked one pixel each in an
+    ``_Annotated_Cars`` mask, and an empty ``_Annotated_Negatives`` one.
+    Returns each scene's car count."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.data.synth import (
+        synthetic_scene,
+    )
+    from mpp_cnn_rs_object_detection_torch.utils.png import write_png
+
+    os.makedirs(os.path.join(raw, "Utah"))
+    cars = []
+    for i in range(COWC_SCENES):
+        image, centers, _ = synthetic_scene(*COWC_HW, COWC_CARS,
+                                            seed=seed + 100 + i)
+        ann = np.zeros(COWC_HW + (3,), np.uint8)
+        rc = np.round(centers).astype(int)
+        ann[rc[:, 0], rc[:, 1]] = (255, 0, 0)
+        stem = os.path.join(raw, "Utah", f"img{i}")
+        write_png(stem + ".png", (image * 255).astype(np.uint8), level=1)
+        write_png(stem + "_Annotated_Cars.png", ann, level=1)
+        write_png(stem + "_Annotated_Negatives.png", ann * 0, level=1)
+        cars.append(len(centers))
+    return cars
+
+
+def contrast_config(root: str, config, base: str, name: str, **inference
+                    ) -> str:
+    """A copy of ``base`` on the flagship's CNNs with the CNN-free data
+    term: ``CONTRAST_SETUP`` (craciun2, manual weights over the contrast
+    names). Returns its path."""
+    path = mpp_config_copy(root, base, name, store=False,
+                           blocks={"dataset": {
+                               k: config["dataset"][k] for k in
+                               ("position_model", "shape_model")}},
+                           **inference)
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg.update(json.loads(json.dumps(CONTRAST_SETUP)))
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def translation_phase(root: str, config, device, seed: int) -> int:
+    """Phase 15: the translators, check_div, the oracle and the CNN-free
+    data term on both chains. Returns check_div's detection-map launches."""
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
+    from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import (
+        CONTRAST_NAMES,
+    )
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+
+    # (a) raw DOTA -> DOTA_smoke
+    t0 = time.perf_counter()
+    raw = os.path.join(root, "dota_raw")
+    vehicles = write_raw_dota(raw, seed)
+    with open(os.path.join(mpp_model.REPO_ROOT, "model_configs",
+                           "translation", "translate_DOTA_config.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="DOTA_smoke", dota_base_path=[raw])
+    path = os.path.join(root, "translate_DOTA_smoke.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    t_raw = time.perf_counter() - t0
+    counts, sec = run_procedure(root, ["-p", "translate_dota", "-c", path],
+                                device)
+    shapes = {}
+    for subset in counts:
+        for fname in sorted(os.listdir(os.path.join(
+                root, "data", "DOTA_smoke", subset, "metadata"))):
+            with open(os.path.join(root, "data", "DOTA_smoke", subset,
+                                   "metadata", fname)) as f:
+                meta = json.load(f)
+            shapes[f"{subset}/{fname[:4]}"] = (tuple(meta["shape"]),
+                                               meta["n_objects"])
+    h, w = RAW_DOTA_HW
+    want = {"train/0000": ((round(h * 0.6), round(w * 0.6), 3),
+                           vehicles[0]),
+            "train/0001": ((h // 2, w // 2, 3), vehicles[1]),
+            "val/0002": ((h, w, 3), vehicles[2])}
+    if counts != {"train": 2, "val": 1} or shapes != want:
+        raise AssertionError(f"translate_dota: {counts} {shapes}")
+    print(f"  -p translate_dota: {sec:.3f} s (raw tree {t_raw:.3f} s); "
+          f"translated {counts}, banned source dropped; (shape, objects) "
+          f"{shapes}", flush=True)
+
+    # (b) raw COWC -> COWC_smoke
+    raw = os.path.join(root, "cowc_raw")
+    n_cars = write_raw_cowc(raw, seed)
+    path = os.path.join(root, "translate_COWC_smoke.json")
+    with open(path, "w") as f:
+        json.dump({"name": "COWC_smoke", "cowc_base_path": [raw],
+                   "target_gsd": 0.5, "val_fraction": 0.25, "seed": 0}, f)
+    counts, sec = run_procedure(root, ["-p", "translate_cowc", "-c", path],
+                                device)
+    cars = {}
+    for subset in ("val", "train"):
+        folder = os.path.join(root, "data", "COWC_smoke", subset)
+        for fname in sorted(os.listdir(os.path.join(folder, "metadata"))):
+            with open(os.path.join(folder, "metadata", fname)) as f:
+                meta = json.load(f)
+            cars[os.path.basename(meta["source_image"])] = meta["n_objects"]
+            if meta["shape"] != [int(COWC_HW[0] * 0.3),
+                                 int(COWC_HW[1] * 0.3), 3]:
+                raise AssertionError(f"translate_cowc: {meta}")
+    if counts != {"val": 1, "train": COWC_SCENES - 1} or cars != {
+            f"img{i}.png": n for i, n in enumerate(n_cars)}:
+        raise AssertionError(f"translate_cowc: {counts} {cars}")
+    print(f"  -p translate_cowc: {sec:.3f} s; translated {counts}, cars "
+          f"{cars}", flush=True)
+
+    # (c) check_div: the kernel against its plain version
+    dk.KERNEL.launches = 0
+    errors, sec = run_procedure(root, ["-p", "check_div"], device)
+    launches = dk.KERNEL.launches
+    print(f"  -p check_div: {sec:.3f} s; {errors}; {launches} detection-map "
+          f"launch; tol=atol {ATOL} + rtol {RTOL}", flush=True)
+    if launches != 1 or not errors["kernel"] <= ATOL or \
+            not errors["divergence"] < 1e-5:
+        raise AssertionError(f"check_div: {errors}, {launches} launches")
+
+    # (d) the oracle on DOTA_smoke's val subset
+    _, sec = run_procedure(root, ["-p", "infereval", "-m", "oracle", "-c",
+                                  "config_oracle", "-d", "DOTA_smoke"],
+                           device)
+    aps = {}
+    for iou in (0.05, 0.1, 0.25, 0.5, 0.75):
+        with open(os.path.join(root, "data", "inference", "DOTA_smoke",
+                               "val", "oracle", "dota",
+                               f"metrics{iou:.2f}.json")) as f:
+            aps[iou] = json.load(f)["vehicle"]["ap"]
+    print(f"  -p infereval -m oracle: {sec:.3f} s; AP "
+          + ", ".join(f"@{k} {v:.3f}" for k, v in aps.items()), flush=True)
+    if any(v != 1.0 for v in aps.values()):
+        raise AssertionError(f"oracle AP {aps}")
+
+    # (e) the contrast data term, exact then tiled, on phase 6's CNNs
+    name = f"{MANUAL_CONFIG}_contrast"
+    model, t_cli = run_cli(root, contrast_config(root, config, MANUAL_CONFIG,
+                                                 name), device)
+    if model.energy_setup.spec.names != CONTRAST_NAMES or \
+            model.energy_model.kind != "manual_hierarchical":
+        raise AssertionError(f"{name}: {model.energy_setup.spec} "
+                             f"{model.energy_model.kind}")
+    stops = {(r.supersteps, r.stopped) for r in model.results.values()}
+    if stops != {(341, True)}:
+        raise AssertionError(f"{name}: not one segment per scene: {stops}")
+    aps = check_exports(root, model, name)
+    with inside(root):
+        data = model._load_image(0, "val")
+    probe = superstep_probe(model.energy_setup, model.energy_model,
+                            model.capacity, data, {}, device)
+    sec = model.seconds
+    print(f"  CLI -c {name} (exact, contrast craciun2, manual): "
+          f"{t_cli:.3f} s; chains {sec['chain']:.3f} s "
+          f"({1e3 * sec['chain'] / (341 * CLI_SCENES):.3f} ms/superstep); "
+          f"{ap_line(model, aps)}; one superstep alone: {probe['launches']}"
+          f" launches, {probe['device_ms']:.3f} device ms", flush=True)
+    name = f"{TILED_CONFIG}_contrast"
+    path = contrast_config(root, config, TILED_CONFIG, name,
+                           segment_size=CONTRAST_TILED[0])
+    with open(path) as f:
+        cfg = json.load(f)
+    rj = cfg["inference"]["rjmcmc_params"]
+    rj.pop("stopping")
+    rj.update(burn_in=CONTRAST_TILED[1], samples_interval=CONTRAST_TILED[2])
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    model, t_cli = run_cli(root, path, device)
+    aps = check_exports(root, model, name)
+    steps = {r.supersteps for r in model.results.values()}
+    if steps != {CONTRAST_TILED[0]}:
+        raise AssertionError(f"{name}: {steps} steps")
+    print(f"  CLI -c {name} (tiled, sequential, contrast craciun2): "
+          f"{t_cli:.3f} s; chains {model.seconds['chain']:.3f} s for "
+          f"{CONTRAST_TILED[0]} steps of {CLI_SCENES} scenes; "
+          f"{ap_line(model, aps)}", flush=True)
+    return launches
+
+
 def unet_reference_check(pos_model, device):
     """The U-Net on the card against the CPU on a small input, in fp32."""
     import numpy as np
@@ -1885,6 +2157,9 @@ def run(args, device: str = "cuda:0") -> int:
         launches_host_train = host_train_phase(root, device, host_configs())
         phase("14 CLI train -m posnet|shapenet on the host pipeline, infer",
               t0)
+        t0 = time.perf_counter()
+        launches_div = translation_phase(root, config, device, args.seed)
+        phase("15 translators, check_div, oracle, contrast data term", t0)
     finally:
         shutil.rmtree(root)
 
@@ -1897,13 +2172,14 @@ def run(args, device: str = "cuda:0") -> int:
     print(f"  detection-map launches by path: in memory {launches_cnn}, CLI "
           f"infereval {launches}, CLI train {launches_train}, CLI infer of "
           f"the trained PosNet {launches_cnn_train}, of the host-trained "
-          f"PosNet {launches_host_train}; phases 7, 8, 10, 11 and 12 reuse "
-          f"the CNN results", flush=True)
+          f"PosNet {launches_host_train}, check_div {launches_div}; phases "
+          f"7, 8, 10, 11, 12 and 15's chains reuse the CNN results",
+          flush=True)
     kernels = [{
         "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
         "replaces": dk.KERNEL.replaces,
         "launches": launches_cnn + launches + launches_train
-        + launches_cnn_train + launches_host_train,
+        + launches_cnn_train + launches_host_train + launches_div,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
     }]

@@ -5,14 +5,21 @@
     python -m mpp_cnn_rs_object_detection_torch -m {posnet,shapenet,mpp} \
         -p train -c CONFIG [-d DATASET] [-o] [-r]
     python -m mpp_cnn_rs_object_detection_torch -p make_synth [-c CONFIG]
+    python -m mpp_cnn_rs_object_detection_torch \
+        -p {translate_dota,translate_cowc} -c CONFIG
+    python -m mpp_cnn_rs_object_detection_torch -p check_div
+    python -m mpp_cnn_rs_object_detection_torch -m oracle \
+        -p {infer,eval,infereval} -c config_oracle [-d DATASET]
 
 It runs on the CUDA device; ``main(argv, device="cpu")`` runs it on the
 CPU. ``-p train -m posnet|shapenet`` trains every CNN config: on the
 device-resident patch pipeline with ``data_loader.device_pipeline``, else
 on the host pipeline (PNG patch sets, host augmentation and targets, hard
-mining for a PosNet with ``error_update_interval``). Procedures and models
-of ``main.py`` that the port does not have raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+mining for a PosNet with ``error_update_interval``). The translators and
+the oracle run on the host; ``check_div`` holds the detection-map kernel
+to its plain version on the card (on the CPU, the plain version to
+numpy). Procedures and models of ``main.py`` that the port does not have
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -23,9 +30,8 @@ import logging
 import sys
 
 # procedures and models of main.py that are not ported -> ROADMAP.md item
-_NOT_PORTED_PROCEDURES = {"data_preview": "16", "translate_dota": "16",
-                          "translate_cowc": "16", "check_div": "16"}
-_NOT_PORTED_MODELS = {"oracle": "14", "fasterrcnn": "14", "bbavec": "14"}
+_NOT_PORTED_PROCEDURES = {"data_preview": "16"}
+_NOT_PORTED_MODELS = {"fasterrcnn": "14", "bbavec": "14"}
 
 
 def parse_args(argv=None):
@@ -60,14 +66,32 @@ def load_config(args) -> dict:
 
 
 def main(argv=None, device=None):
-    """Run one procedure; returns the model it built (None for
-    ``make_synth``). ``device`` defaults to the CUDA device."""
+    """Run one procedure; returns the model it built (for
+    ``translate_*`` the images written per subset, for ``check_div`` its
+    errors, None for ``make_synth``). ``device`` defaults to the CUDA
+    device."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     if args.procedure in _NOT_PORTED_PROCEDURES:
         raise NotImplementedError(
             f"procedure {args.procedure} is not ported (ROADMAP.md item "
             f"{_NOT_PORTED_PROCEDURES[args.procedure]})")
+    if args.procedure == "translate_dota":
+        from mpp_cnn_rs_object_detection_torch.data.translate_dota import (
+            translate_dota,
+        )
+
+        return translate_dota(load_config(args))
+    if args.procedure == "translate_cowc":
+        from mpp_cnn_rs_object_detection_torch.data.translate_cowc import (
+            translate_cowc,
+        )
+
+        return translate_cowc(load_config(args))
+    if args.procedure == "check_div":
+        from mpp_cnn_rs_object_detection_torch.ops.check_div import check_div
+
+        return check_div(device)
     if args.procedure == "make_synth":
         from mpp_cnn_rs_object_detection_torch.data.synth import (
             make_synth_dataset,
@@ -85,7 +109,13 @@ def main(argv=None, device=None):
     config = load_config(args)
     # as main.py: a training run loads its stored model only to resume
     load = args.resume or not train
-    if args.model in ("posnet", "shapenet"):
+    if args.model == "oracle":
+        from mpp_cnn_rs_object_detection_torch.models.oracle_model import (
+            OracleModel,
+        )
+
+        model = OracleModel(config, dataset=args.dataset)
+    elif args.model in ("posnet", "shapenet"):
         from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
             PosNetModel,
         )

@@ -19,12 +19,15 @@ library's own arithmetic, so the same inputs give the same outputs:
     iterator, then its even-odd scanline fill in 16.16 fixed point;
   - ``resize_area`` / ``resize_linear``: ``cv2.resize`` of float32 images
     with ``INTER_AREA`` (fractional cell weights, OpenCV's accumulation
-    order) and ``INTER_LINEAR`` (half-pixel centers, edge replication);
+    order; at integer factors its fast path: each block summed in OpenCV's
+    order, then scaled) and ``INTER_LINEAR`` (half-pixel centers, edge
+    replication);
   - ``box_blur3``: ``cv2.blur(img, (3, 3))`` (border ``REFLECT_101``);
   - ``resize_bilinear_u8``: Pillow's ``Image.resize((w, h),
-    Image.BILINEAR)`` of an 8-bit ``L`` image: a triangle filter whose
-    support scales with the reduction, 22-bit fixed-point coefficients,
-    a horizontal then a vertical pass.
+    Image.BILINEAR)`` of an 8-bit ``L`` or ``RGB`` image: a triangle
+    filter whose support scales with the reduction, 22-bit fixed-point
+    coefficients (the same for every band), a horizontal then a vertical
+    pass.
 
 ``tests/test_torch_augmentation.py`` holds each to the library.
 """
@@ -286,12 +289,52 @@ def _area_tab(src: int, dst: int):
     return _frozen(idx, wgt)
 
 
+# OpenCV's 128-bit vectors of float32: the fast path's vector branch
+# handles whole groups of this many outputs of a 1-channel row
+_SIMD_LANES = 4
+
+
+def _resize_area_fast(img: np.ndarray, kx: int, ky: int) -> np.ndarray:
+    """``INTER_AREA`` at integer factors (OpenCV's ``resizeAreaFast``):
+    each ky x kx block summed in row-major order, four terms at a time
+    (``sum += a + b + c + d``), times 1 / (kx * ky). At factor 2 its
+    vector branch sums ``(r00 + r01) + (r10 + r11)`` instead: for 4
+    channels everywhere, for 1 channel on whole groups of lanes."""
+    h, w, cn = img.shape
+    oh, ow = h // ky, w // kx
+    x = img[:oh * ky, :ow * kx].reshape(oh, ky, ow, kx, cn)
+    terms = [x[:, sy, :, sx] for sy in range(ky) for sx in range(kx)]
+    total = np.zeros((oh, ow, cn), img.dtype)
+    k = 0
+    while k <= len(terms) - 4:
+        total = total + (((terms[k] + terms[k + 1]) + terms[k + 2])
+                         + terms[k + 3])
+        k += 4
+    for t in terms[k:]:
+        total = total + t
+    out = total * img.dtype.type(1.0 / (kx * ky))
+    if kx == ky == 2 and cn in (1, 4):
+        vec = ((terms[0] + terms[1]) + (terms[2] + terms[3])) * img.dtype.type(
+            0.25)
+        n = ow if cn == 4 else ow // _SIMD_LANES * _SIMD_LANES
+        out[:, :n] = vec[:, :n]
+    return out
+
+
 def resize_area(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """``cv2.resize(img, (w, h), interpolation=INTER_AREA)`` of an
-    (H, W, C) float image to a smaller, non-integer-factor size: each
-    source row's weighted column sums, then the weighted sum of those
-    rows, in the image's dtype (float32 weights) and OpenCV's order."""
+    (H, W[, C]) float image to a smaller size: at integer factors
+    OpenCV's fast path, else each source row's weighted column sums,
+    then the weighted sum of those rows, in the image's dtype (float32
+    weights) and OpenCV's order."""
     img = np.asarray(img)
+    if img.ndim == 2:
+        return resize_area(img[..., None], size)[..., 0]
+    if tuple(size) == (img.shape[1], img.shape[0]):
+        return img.copy()
+    if img.shape[1] % size[0] == 0 and img.shape[0] % size[1] == 0:
+        return _resize_area_fast(img, img.shape[1] // size[0],
+                                 img.shape[0] // size[1])
     xi, xw = _area_tab(img.shape[1], size[0])
     yi, yw = _area_tab(img.shape[0], size[1])
     rows = img[:, xi[0]] * xw[0][None, :, None]
@@ -376,8 +419,12 @@ def _pil_pass(img: np.ndarray, dst: int) -> np.ndarray:
 def resize_bilinear_u8(img: np.ndarray, size: Tuple[int, int]
                        ) -> np.ndarray:
     """Pillow's ``Image.fromarray(img).resize((w, h), Image.BILINEAR)``
-    of an (H, W) uint8 image."""
-    out = np.asarray(img, np.uint8).astype(np.int64)
+    of an (H, W) or (H, W, 3) uint8 image, band by band."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 3:
+        return np.stack([resize_bilinear_u8(img[..., c], size)
+                         for c in range(img.shape[2])], axis=-1)
+    out = img.astype(np.int64)
     w, h = size
     if w != out.shape[1]:
         out = _pil_pass(out, w)

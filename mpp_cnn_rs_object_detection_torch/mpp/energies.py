@@ -1,9 +1,11 @@
 """Vectorised MPP energies on torch tensors.
 
-Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/energies.py`` for the
-CNN data term: unary energies are bilinear map gathers (tri-linear in the
-mark value for the mark maps), pair energies are (K, K) matrices masked by
-alive x alive and the interaction radius, reduced per row.
+Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/energies.py``. The
+CNN data term's unary energies are bilinear map gathers (tri-linear in the
+mark value for the mark maps); the CNN-free terms (``data_term``
+'contrast' or 'gradient', ``mpp/classic_energies.py``) are one column read
+from the image or its gradient field. Pair energies are (K, K) matrices
+masked by alive x alive and the interaction radius, reduced per row.
 
 The chain's functions take states and maps with one leading lane axis B
 (``mpp/state.py``): lane b's points read lane b's maps; weight training's
@@ -15,10 +17,14 @@ one at their boundary.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from mpp_cnn_rs_object_detection_torch.mpp.classic_energies import (
+    ContrastConfig,
+    data_energies,
+)
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
     expand_lanes,
@@ -32,8 +38,7 @@ from mpp_cnn_rs_object_detection_torch.ops.geometry import (
 
 @dataclass(frozen=True)
 class EnergySpec:
-    """Which energy columns exist (the CNN data term; the contrast and
-    gradient data terms are not ported)."""
+    """Which energy columns exist."""
 
     names: Tuple[str, ...]
     shape_mode: str = "mean"  # 'mean' (one ShapeEnergy) | 'separate' (3 marks)
@@ -41,10 +46,22 @@ class EnergySpec:
     rewarding_align: bool = True
     overlap_max_dist: float = 32.0
     align_max_dist: float = 16.0
+    # data term: 'cnn' (detection + mark maps), 'contrast' or 'gradient'
+    # (CNN-free; the maps' ``image`` carries the pixels or the gradient)
+    data_term: str = "cnn"
+    contrast: Optional[ContrastConfig] = None
 
     @property
     def n_energies(self) -> int:
         return len(self.names)
+
+    @property
+    def n_data(self) -> int:
+        """The data columns ahead of the priors: position and one or three
+        mark terms, or the one CNN-free term."""
+        if self.data_term != "cnn":
+            return 1
+        return 2 if self.shape_mode == "mean" else 4
 
 
 LEGACY_SPEC = EnergySpec(
@@ -75,6 +92,8 @@ class EnergyMaps:
     min_area: torch.Tensor    # ([B,])
     max_area: torch.Tensor    # ([B,])
     target_ratio: torch.Tensor  # ([B,])
+    # ([B,] H, W, 3) pixels or gradient field; (1, 1, 3) zeros if unused
+    image: torch.Tensor
 
 
 def lane_view(v: torch.Tensor, ndim: int, trailing: int = 0) -> torch.Tensor:
@@ -117,9 +136,10 @@ def mapping_tensors(mappings, device):
 
 def make_energy_maps(detection_map, mark_energy_maps, threshold: float,
                      min_area: float, max_area: float, mappings,
-                     target_ratio: float = 0.0) -> EnergyMaps:
+                     target_ratio: float = 0.0, image=None) -> EnergyMaps:
     """From the detection map and the already-remapped (H, W, C) mark maps
-    (a list of 3 or a stacked (3, H, W, C) tensor)."""
+    (a list of 3 or a stacked (3, H, W, C) tensor), and for a CNN-free
+    data term the (H, W, 3) ``image`` it reads."""
     mark_maps = stack_param_dists(mark_energy_maps)
     dev = mark_maps.device
     det = torch.as_tensor(detection_map, dtype=torch.float32, device=dev)
@@ -133,6 +153,9 @@ def make_energy_maps(detection_map, mark_energy_maps, threshold: float,
         map_vmin=vmin, map_vmax=vmax, map_cyclic=cyclic,
         min_area=scalar(min_area), max_area=scalar(max_area),
         target_ratio=scalar(target_ratio),
+        image=(torch.as_tensor(image, dtype=torch.float32, device=dev)
+               if image is not None
+               else torch.zeros((1, 1, 3), dtype=torch.float32, device=dev)),
     )
 
 
@@ -196,9 +219,15 @@ def mark_lookup_interp(mark_maps, xy, marks, vmin, vmax, cyclic,
     return torch.stack(out, dim=-1)
 
 
-def unary_terms(maps: EnergyMaps, xy, marks):
+def unary_terms(maps: EnergyMaps, spec: EnergySpec, xy, marks):
     """(position energy (B, ...), per-mark energies (B, ..., 3)) at lane
-    b's (xy, marks) in lane b's maps."""
+    b's (xy, marks) in lane b's maps; for a CNN-free data term, (its
+    energy, zeros), as the JAX package caches it."""
+    if spec.data_term != "cnn":
+        val = data_energies(spec.data_term, spec.contrast, maps.image, xy,
+                            marks)
+        return val, torch.zeros(val.shape + (3,), dtype=val.dtype,
+                                device=val.device)
     h, w = maps.position.shape[-2:]
     lane = _lane_index(xy.shape[0], xy.ndim - 1, xy.device)
     pos = position_lookup(maps.position, xy, h, w, lane)
@@ -208,7 +237,10 @@ def unary_terms(maps: EnergyMaps, xy, marks):
 
 
 def data_columns(state: PointsState, maps: EnergyMaps, spec: EnergySpec):
-    pos, mark_e = unary_terms(maps, state.xy, state.marks)
+    """The data-term columns of the per-point energy vector."""
+    pos, mark_e = unary_terms(maps, spec, state.xy, state.marks)
+    if spec.data_term != "cnn":
+        return [pos]
     if spec.shape_mode == "mean":
         return [pos, mark_e.mean(dim=-1)]
     return [pos, mark_e[..., 0], mark_e[..., 1], mark_e[..., 2]]

@@ -8,9 +8,11 @@ Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/energy_setups.py``:
   - ``NoCalibrationEnergySetup``: Position (threshold 0) + three
     single-mark terms (``-p``, or the logistic remap with ``calib_marks``)
     + overlap / alignment / area priors (+ the optional ratio prior);
-    calibrates the area quantiles (and the remaps if asked).
-
-The contrast setup (a CNN-free data term) is ``ROADMAP.md`` item 13.
+    calibrates the area quantiles (and the remaps if asked);
+  - ``ContrastMeasureEnergySetup``: a CNN-free data term (a contrast
+    measure of the image, or the gradient alignment) + the priors;
+    calibrates the area quantiles. The CNN maps still give the chain its
+    birth proposals.
 """
 
 from __future__ import annotations
@@ -20,11 +22,17 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+import torch
+
 from mpp_cnn_rs_object_detection_torch.mpp.calibration import (
     apply_remap_param_dist,
     calibrate_detection_threshold,
     calibrate_min_area,
     calibrate_param_dists,
+)
+from mpp_cnn_rs_object_detection_torch.mpp.classic_energies import (
+    ContrastConfig,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.energies import (
     EnergyMaps,
@@ -197,6 +205,71 @@ class NoCalibrationEnergySetup(EnergySetup):
         return 0.5
 
 
+CONTRAST_NAMES = (
+    "ContrastEnergy",
+    "OverlapPriorEnergy",
+    "AlignmentPriorEnergy",
+    "AreaPriorEnergy",
+    "RatioPriorEnergy",
+)
+
+
+@dataclass
+class ContrastMeasureEnergySetup(EnergySetup):
+    """CNN-free data term + priors. ``contrast_type`` names a contrast
+    measure (``mpp/classic_energies.py``) or 'gradient'."""
+
+    contrast_type: str = "craciun2"
+    rewarding_priors: bool = True
+    manual_threshold: Optional[float] = None
+    target_ratio: float = 0.5
+    calibration: Optional[Dict[str, Any]] = None
+
+    def __post_init__(self):
+        gradient = self.contrast_type == "gradient"
+        contrast = None if gradient else ContrastConfig(
+            measure=self.contrast_type,
+            gap=1 if self.contrast_type != "craciun" else 0,
+            erode=1 if self.contrast_type != "craciun" else 0,
+            rgb=self.contrast_type != "t-test",
+            thresh=self.manual_threshold or 0.0)
+        self.spec = EnergySpec(
+            names=CONTRAST_NAMES, shape_mode="mean", use_ratio_prior=True,
+            rewarding_align=self.rewarding_priors,
+            data_term="gradient" if gradient else "contrast",
+            contrast=contrast)
+
+    def calibrate(self, image_configs: List[ImageWMaps], rng, save_path: str):
+        """Area quantiles from the GT marks."""
+        min_area, max_area = calibrate_min_area(
+            [c.gt_marks for c in image_configs])
+        self.calibration = {"min_area": min_area, "max_area": max_area,
+                            "detection_threshold": self.manual_threshold
+                            or 0.0}
+        self._save_calibration(save_path)
+
+    def make_maps(self, data: ImageWMaps) -> EnergyMaps:
+        """The maps with the image, or for 'gradient' its gray level's
+        ``np.gradient`` (d/dy, d/dx, 0), made on the host."""
+        cal = self.calibration
+        img = data.image
+        if self.contrast_type == "gradient":
+            gray = np.mean(img.cpu().numpy() if isinstance(img, torch.Tensor)
+                           else np.asarray(img), -1)
+            grad = np.stack(np.gradient(gray), axis=-1)
+            img = np.concatenate([grad, np.zeros_like(grad[..., :1])], -1)
+        return make_energy_maps(
+            detection_map=data.detection_map,
+            mark_energy_maps=[-m for m in data.param_dist_maps],
+            threshold=0.0, min_area=cal["min_area"],
+            max_area=cal["max_area"], mappings=data.mappings,
+            target_ratio=self.target_ratio, image=img)
+
+    @property
+    def detection_threshold(self) -> float:
+        return 0.5
+
+
 def make_energy_setup(config: Dict[str, Any]) -> EnergySetup:
     """The setup named by the mpp config (``energy_setup`` +
     ``energy_setup_params``)."""
@@ -208,7 +281,6 @@ def make_energy_setup(config: Dict[str, Any]) -> EnergySetup:
     if kind in ("no-calibration", "no_calibration", "no_calib"):
         return NoCalibrationEnergySetup(**kwargs)
     if kind == "contrast":
-        raise NotImplementedError("the contrast energy setup is not ported "
-                                  "(ROADMAP.md item 13)")
+        return ContrastMeasureEnergySetup(**kwargs)
     raise ValueError(f"unknown energy setup {kind}")
 

@@ -641,8 +641,9 @@ def _cell_proposal_switched(gens, types, state: PointsState, kd: KernelData,
 
 
 def _unary_at(maps: EnergyMaps, spec: EnergySpec, xy, marks):
-    """Unary data columns (position (...,), marks (..., 3)) at candidates."""
-    return unary_terms(maps, xy, marks)
+    """Unary data columns (position (...,), marks (..., 3)) at candidates;
+    for a CNN-free term (its energy, zeros)."""
+    return unary_terms(maps, spec, xy, marks)
 
 
 def _tops(values, mask, sign: float, n: int):
@@ -700,7 +701,7 @@ def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
     base_vec = vec_cols(spec, maps, cache.pos_e, cache.mark_e, ov_red, al_red,
                         cache.areas, state.marks[..., 1])
     pp_raw = combine(comb, base_vec)  # (B, K), valid where alive
-    n_data = 2 if spec.shape_mode == "mean" else 4
+    n_data = spec.n_data
     ov_col, al_col = n_data, n_data + 1
 
     s = torch.clamp(slots, 0, k - 1)
@@ -780,7 +781,7 @@ def _two_slot_deltas(state: PointsState, cache: EnergyCache,
     base_vec = vec_cols(spec, maps, cache.pos_e, cache.mark_e, ov_red, al_red,
                         cache.areas, state.marks[..., 1])
     pp_raw = combine(comb, base_vec)
-    n_data = 2 if spec.shape_mode == "mean" else 4
+    n_data = spec.n_data
     ov_col, al_col = n_data, n_data + 1
 
     s = torch.clamp(slots, 0, k - 1)

@@ -158,7 +158,7 @@ def build_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
                                      areas[..., None, :]) + 1e-6)
     dangle = m[..., :, None, 2] - m[..., None, :, 2]
     align = 1.0 - torch.abs(torch.cos(dangle)) - float(spec.rewarding_align)
-    pos_e, mark_e = unary_terms(maps, state.xy, state.marks)
+    pos_e, mark_e = unary_terms(maps, spec, state.xy, state.marks)
     return EnergyCache(dist=dist, overlap=overlap, align=align, pos_e=pos_e,
                        mark_e=mark_e, polys=polys, areas=areas)
 
@@ -200,7 +200,7 @@ def update_cache(state: PointsState, maps: EnergyMaps, spec: EnergySpec,
     mats = [set_rows(mat, row).scatter(2, col, row.transpose(1, 2))
             for mat, row in zip((cache.dist, cache.overlap, cache.align),
                                 rows)]
-    pos_u, mark_u = unary_terms(maps, xy_u, mk_u)
+    pos_u, mark_u = unary_terms(maps, spec, xy_u, mk_u)
     return EnergyCache(dist=mats[0], overlap=mats[1], align=mats[2],
                        pos_e=set_rows(cache.pos_e, pos_u),
                        mark_e=set_rows(cache.mark_e, mark_u), polys=polys,
@@ -225,10 +225,10 @@ def vec_cols(spec: EnergySpec, maps: EnergyMaps, pos, mark3, ov, al, area,
     max_area = lane_view(maps.max_area, area.ndim)
     area_prior = torch.clamp(
         torch.maximum(min_area - area, area - max_area), min=0.0)
-    cols = [pos]
-    if spec.shape_mode == "mean":
+    cols = [pos]  # a CNN-free term is this one column
+    if spec.data_term == "cnn" and spec.shape_mode == "mean":
         cols.append(mark3.mean(dim=-1))
-    else:
+    elif spec.data_term == "cnn":
         cols.extend([mark3[..., 0], mark3[..., 1], mark3[..., 2]])
     cols.extend([ov, al, area_prior])
     if spec.use_ratio_prior:

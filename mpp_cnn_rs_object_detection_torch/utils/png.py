@@ -5,9 +5,11 @@ PIL, which the GPU host lacks. The reader takes 8-bit, non-interlaced gray
 (``L``), gray + alpha, RGB and RGBA images with any of the five row filters
 (PIL's writer picks a filter per row). It returns the array PIL's
 ``np.asarray(Image.open(path))`` gives: (H, W) for gray, (H, W, C)
-otherwise. The writer stores 8-bit RGB rows with filter 0, deflated at
-zlib level 6 unless the caller gives another (the training patch sets,
-rewritten every few epochs, use 1, as the JAX package does).
+otherwise. The writer stores 8-bit gray, gray + alpha, RGB or RGBA rows
+with filter 0, deflated at zlib level 6 unless the caller gives another
+(the training patch sets, rewritten every few epochs, use 1, as the JAX
+package does). Palette, 16-bit and interlaced PNGs are refused with their
+format named.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> samples per pixel
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_COLOR_TYPE = {c: t for t, c in _CHANNELS.items()}
 
 
 def _chunks(data: bytes):
@@ -99,9 +102,13 @@ def read_png(path: str) -> np.ndarray:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
     if depth != 8 or color not in _CHANNELS or interlace != 0:
+        kind = ", ".join(k for k, bad in (
+            ("palette", color == 3), (f"bit depth {depth}", depth != 8),
+            ("interlaced", interlace != 0)) if bad) or f"color type {color}"
         raise ValueError(
-            f"{path}: only 8-bit non-interlaced gray/RGB/RGBA PNGs are read "
-            f"(bit depth {depth}, color type {color}, interlace {interlace})")
+            f"{path}: a {kind} PNG; only 8-bit non-interlaced gray, gray + "
+            f"alpha, RGB and RGBA PNGs are read (bit depth {depth}, color "
+            f"type {color}, interlace {interlace})")
     bpp = _CHANNELS[color]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     rows = rows.reshape(h, 1 + w * bpp)
@@ -115,18 +122,21 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
-    """Write an (H, W, 3) uint8 RGB array, deflated at zlib ``level``."""
+    """Write an (H, W) gray or (H, W, C) uint8 array (C = 1 gray, 2 gray +
+    alpha, 3 RGB, 4 RGBA), deflated at zlib ``level``."""
     image = np.asarray(image)
-    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
-        raise ValueError(f"png: write takes (H, W, 3) uint8, got "
-                         f"{image.shape} {image.dtype}")
+    bpp = 1 if image.ndim == 2 else (image.shape[2] if image.ndim == 3
+                                     else 0)
+    if image.dtype != np.uint8 or bpp not in _COLOR_TYPE:
+        raise ValueError(f"png: write takes (H, W) or (H, W, 1-4) uint8, "
+                         f"got {image.shape} {image.dtype}")
     h, w = image.shape[:2]
-    rows = np.zeros((h, 1 + w * 3), np.uint8)  # filter 0 per row
+    rows = np.zeros((h, 1 + w * bpp), np.uint8)  # filter 0 per row
     rows[:, 1:] = image.reshape(h, -1)
     with open(path, "wb") as f:
         f.write(_SIGNATURE
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
-                                               0))
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                               _COLOR_TYPE[bpp], 0, 0, 0))
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
                 + _chunk(b"IEND", b""))
 

@@ -138,12 +138,17 @@ def test_png_every_filter_type(tmp_path):
 
 @pytest.mark.parametrize("h,w", [(40, 29), (1, 517)])
 def test_png_written_reads_back_through_pil(tmp_path, h, w):
+    """RGB, and the gray, gray + alpha and RGBA images the dataset
+    translators write, read back through PIL and the port's reader; a
+    float image and 5 channels are refused."""
     img = _mixed_image(h, w, 3, seed=5)
     path = str(tmp_path / "port.png")
-    png.write_png(path, img)
-    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
-    np.testing.assert_array_equal(png.read_png(path), img)
-    for bad in (img.astype(np.float32), img[..., 0]):
+    for pixels in (img, img[..., 0], _mixed_image(h, w, 2, seed=6),
+                   _mixed_image(h, w, 4, seed=7)):
+        png.write_png(path, pixels)
+        np.testing.assert_array_equal(np.asarray(Image.open(path)), pixels)
+        np.testing.assert_array_equal(png.read_png(path), pixels)
+    for bad in (img.astype(np.float32), _mixed_image(h, w, 5, seed=8)):
         with pytest.raises(ValueError):
             png.write_png(path, bad)
 

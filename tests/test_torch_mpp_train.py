@@ -241,13 +241,15 @@ def test_manual_legacy_mode_runs(trained):
     ("train posnet", 12), ("train shapenet", 12), ("tile_mesh mpp_r3", 15),
     ("contrast setup", 13)])
 def test_what_still_raises(case, item, tmp_path):
-    """The tile mesh of a tiled manual config and the contrast energy setup
-    raise with the ROADMAP.md item that ports them (the tiled mode itself
-    is ported). CNN training on the host patch pipeline raised naming item
-    12 until that item was ported: ``pos_quick`` / ``shape_quick`` (no
+    """The tile mesh of a tiled manual config raises with the ROADMAP.md
+    item that ports it (the tiled mode itself is ported). CNN training on
+    the host patch pipeline raised naming item 12 until that item was
+    ported: ``pos_quick`` / ``shape_quick`` (no
     ``data_loader.device_pipeline``) now train, cut to one epoch of 32
     patches of 32^2 and a U-Net [8, 16], and no error of the port names
-    item 12."""
+    item 12. The contrast energy setup raised naming item 13 until that
+    item was ported: it now builds, with the contrast names and data
+    term, and no error of the port names item 13."""
     if case.startswith("train"):
         kind = case.split()[1]
         name = "pos_quick" if kind == "posnet" else "shape_quick"
@@ -279,16 +281,24 @@ def test_what_still_raises(case, item, tmp_path):
             with open(path) as f:
                 assert f"item {item})" not in f.read(), path
         return
+    if case.startswith("contrast"):
+        setup = tes.make_energy_setup({"energy_setup": "contrast"})
+        assert isinstance(setup, tes.ContrastMeasureEnergySetup)
+        assert setup.spec.names == tes.CONTRAST_NAMES
+        assert setup.spec.data_term == "contrast"
+        port = os.path.join(tw.ROOT, "mpp_cnn_rs_object_detection_torch")
+        for path in glob.glob(os.path.join(port, "**", "*.py"),
+                              recursive=True):
+            with open(path) as f:
+                assert f"item {item})" not in f.read(), path
+        return
     if case.startswith("tile_mesh"):
         cfg = tmm.load_mpp_config("mpp_r3")
         assert "manual" in cfg and cfg["inference"]["scene_mode"] == "tiled"
         tmm.check_inference_config(cfg)
         cfg["inference"]["tile_mesh"] = True
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        if case.startswith("tile_mesh"):
-            tmm.check_inference_config(cfg)
-        else:
-            tes.make_energy_setup({"energy_setup": "contrast"})
+        tmm.check_inference_config(cfg)
 
 
 # every MPP config: its train mode, and what its inference still lacks
