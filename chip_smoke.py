@@ -106,7 +106,7 @@ Phases (each prints one line with its seconds; any failure raises):
      (``config_pos``: U-Net [32, 64, 128, 256] in bf16, the div head,
      batches of 64 x 128^2, ``strong`` augmentation with histogram
      matching, hard mining; ``config_shape`` the same without mining) cut
-     to ``HOST_CUT`` (512 of 16,384 patches, 256 val patches, 3 of 256
+     to ``HOST_CUT`` (256 of 16,384 patches, 128 val patches, 3 of 256
      epochs, a regeneration after epochs 1 and 2, the PosNet mining after
      epoch 2, the last). ``-p train -m posnet``: the regeneration
      sequence, one error-map PNG per train scene, the last train set drawn
@@ -130,7 +130,18 @@ Phases (each prints one line with its seconds; any failure raises):
      manual weights) on the flagship's CNN results: a copy of
      ``MANUAL_CONFIG`` for one 341-superstep segment per scene (finite
      APs; the launches and device ms of one superstep alone) and a copy
-     of ``TILED_CONFIG`` for ``CONTRAST_TILED`` sequential steps.
+     of ``TILED_CONFIG`` for ``CONTRAST_TILED`` sequential steps;
+  16. the baseline detectors on phase 13's dataset: copies of
+     ``DETECTOR_CONFIGS`` at full width (``config_fasterrcnn``: ResNet-50,
+     FPN 256, box head 1024, bf16, batches of 32 x 128^2;
+     ``config_bba_vec``: ResNet-101, head_conv 256, bf16, batches of 4)
+     cut to ``DETECTOR_CUT`` (the patch counts and epochs only). Per
+     detector ``-p train`` (finite losses, the device pipeline whatever
+     the config says), a float32 step on the card against the CPU (the
+     loss terms), one profiled bf16 step (launches, device and wall ms,
+     the idle share, the greedy NMS's host ms, peak memory), the
+     projected full training, then ``-p infereval`` (result pickles,
+     DOTA files, finite APs).
 Then one JSON line per kernel table (its launches: every path's, each
 counted from 0 -- phases 3, 6, 9, 13, 14 and 15's ``check_div``; the
 others reuse CNN results), the card's name and power limit, and the result
@@ -158,10 +169,11 @@ TRAIN_EPOCHS, TRAIN_CROPS = 2, 16
 MANUAL_CONFIG = "mpp_exact_smoke"
 # phase 11: the tiled scene mode, depth-cut (the full budget is 30,000
 # burn-in moves and 2 sampling intervals of 128, in segments of 4,096);
-# 512 burn-in moves since phase 15 was added (1,024 before), to keep the
-# script within its 600 s
+# 256 burn-in moves in two segments of 256 since phase 16 was added (512
+# in segments of 512 since phase 15, 1,024 before), to keep the script
+# within its 600 s
 TILED_CONFIG = "mpp_hrcM"
-TILED_BURN_IN, TILED_SEGMENT = 512, 512
+TILED_BURN_IN, TILED_SEGMENT = 256, 256
 # its resume check: 256 burn-in moves + 2 x 128, killed after 256
 RESUME_BURN_IN, RESUME_SEGMENT = 256, 256
 # phase 12: the superstep's split/merge pair, trained
@@ -205,9 +217,11 @@ CNN_TRAIN_SCENES, CNN_SCENE, CNN_OBJECTS = 8, 512, 100
 # the biases BatchNorm re-centres follow float noise, up to two steps
 STEP_RTOL, STEP_PARAM_TOL, STEP_NOISE_TOL = 1e-4, 1e-4, 2e-3
 # phase 14: CNN training on the host patch pipeline, depth-cut copies of
-# the reference's recipes (full width; val patches are n_patches // 2)
+# the reference's recipes (full width; val patches are n_patches // 2);
+# 256 patches since phase 16 was added (512 before), to keep the script
+# within its 600 s
 HOST_CONFIGS = {"posnet": "config_pos", "shapenet": "config_shape"}
-HOST_CUT = {"n_patches": 512, "n_epochs": 3, "dataset_update_interval": 1,
+HOST_CUT = {"n_patches": 256, "n_epochs": 3, "dataset_update_interval": 1,
             "error_update_interval": 2}
 # phase 15: raw DOTA scenes (subset, GSD, source): a fractional rescale
 # (0.30), an integer one (0.25), none (0.5) and a banned source
@@ -226,6 +240,21 @@ CONTRAST_SETUP = {
                            "RatioPriorEnergy": 0.1}}}
 # its tiled copy: steps in all (one segment), burn-in, sample interval
 CONTRAST_TILED = (256, 128, 64)
+# phase 16: the baseline detectors at full width, depth-cut (the configs
+# train 16,384 patches, 2,048 val patches, for 256 and 50 epochs)
+DETECTOR_CONFIGS = {"fasterrcnn": "config_fasterrcnn",
+                    "bbavec": "config_bba_vec"}
+DETECTOR_CUT = {"fasterrcnn": {"n_patches": 512, "val_patches": 128,
+                               "n_epochs": 2},
+                "bbavec": {"n_patches": 128, "val_patches": 64,
+                           "n_epochs": 2}}
+# the copies export at the *_quick configs' floor: two epochs leave few
+# scores above the configs' default (0.25 / 0.2), and AP needs no floor
+DETECTOR_MIN_CONFIDENCE = 0.02
+# their float32 step card vs CPU: the loss terms (proposal selection and
+# the greedy NMS on both sides of the same float noise), on the first
+# DETECTOR_CPU_BATCH patches of a batch (the CPU's share of the phase)
+DETECTOR_STEP_RTOL, DETECTOR_CPU_BATCH = 1e-3, 8
 # ~50 ms of the card's clock: longer than the host takes to queue a timed
 # run of calls
 SLEEP_CYCLES = 100_000_000
@@ -1986,6 +2015,239 @@ def translation_phase(root: str, config, device, seed: int) -> int:
     return launches
 
 
+def detector_configs() -> dict:
+    """Phase 16's copies of ``DETECTOR_CONFIGS`` on phase 13's dataset, at
+    full width, cut to ``DETECTOR_CUT``; returns {kind: config}."""
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import REPO_ROOT
+
+    configs = {}
+    for kind, base in DETECTOR_CONFIGS.items():
+        with open(os.path.join(REPO_ROOT, "model_configs", kind,
+                               base + ".json")) as f:
+            cfg = json.load(f)
+        cut = DETECTOR_CUT[kind]
+        cfg["model_name"] = f"{base}_smoke"
+        dl = cfg["data_loader"]
+        dl["dataset"] = "synth_cnn"
+        dl["patch_maker_params"].update(n_patches=cut["n_patches"],
+                                        val_patches=cut["val_patches"])
+        cfg["trainer"]["n_epochs"] = cut["n_epochs"]
+        cfg["inference"] = {"min_confidence": DETECTOR_MIN_CONFIDENCE}
+        configs[kind] = cfg
+    return configs
+
+
+def detector_full_schedule(kind: str) -> dict:
+    """The uncut config's training as its epoch loop counts it: epochs,
+    train and val steps per epoch, patches per build, train rebuilds."""
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import REPO_ROOT
+
+    with open(os.path.join(REPO_ROOT, "model_configs", kind,
+                           DETECTOR_CONFIGS[kind] + ".json")) as f:
+        cfg = json.load(f)
+    dl, tr = cfg["data_loader"], cfg["trainer"]
+    pm = dl["patch_maker_params"]
+    b, epochs = tr["batch_size"], tr["n_epochs"]
+    return {"epochs": epochs, "steps": pm["n_patches"] // b,
+            "val_steps": max(pm["val_patches"], 64) // b,
+            "patches": pm["n_patches"], "val_patches": pm["val_patches"],
+            "rebuilds": len([e for e in range(epochs)
+                             if e % dl["dataset_update_interval"] == 0
+                             and e not in (0, epochs - 1)])}
+
+
+def check_detector_training(model, kind: str, seconds: float) -> dict:
+    """Finite losses, the device pipeline (train and val stacks built
+    once); prints the epochs' and builds' seconds. Returns the projection
+    of the uncut config's training, linear in this run's epochs (train
+    and val steps at this run's seconds per step) and builds (host seconds
+    per patch)."""
+    import numpy as np
+
+    log = model.logger.log
+    losses = np.asarray(log["train_loss"] + log["val_loss"])
+    cut = DETECTOR_CUT[kind]
+    b = model.batch_size
+    steps = cut["n_patches"] // b + max(cut["val_patches"], 64) // b
+    per_step = [s / steps for s in model.epoch_seconds]
+    print(f"  -p train -m {kind} ({model.config['model_name']}): "
+          f"{seconds:.3f} s; epochs {log['epoch']}; train loss "
+          f"{log['train_loss']}; val loss {log['val_loss']}; seconds per "
+          f"epoch {model.epoch_seconds} ({steps} train + val steps of "
+          f"{b}); host seconds of build_patch_stack {model.stack_seconds}; "
+          f"optimizer count {model.state.opt.count}", flush=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{kind}: non-finite losses {losses}")
+    if not model.device_pipeline or [s for s, _ in model.stack_seconds] \
+            != ["train", "val"]:
+        raise AssertionError(f"{kind}: expected the device pipeline's two "
+                             f"stacks, got {model.stack_seconds}")
+    full = detector_full_schedule(kind)
+    # the later epochs: the first pays the kernels' warm-up
+    step_s = min(per_step[1:] or per_step)
+    train_s = dict(model.stack_seconds)["train"] / cut["n_patches"]
+    val_s = dict(model.stack_seconds)["val"] / max(cut["val_patches"], 64)
+    epochs = full["epochs"] * (full["steps"] + full["val_steps"]) * step_s
+    builds = train_s * full["patches"] * (1 + full["rebuilds"]) \
+        + val_s * max(full["val_patches"], 64)
+    return {"schedule": full, "step_s": step_s, "epochs_s": epochs,
+            "builds_s": builds, "total_s": epochs + builds}
+
+
+def detector_step_vs_cpu(model, kind: str, device, seed: int) -> None:
+    """One train step of float32 copies of ``model``'s state on the card
+    and on the CPU (TF32 off since phase 1), the same batch (the first
+    ``DETECTOR_CPU_BATCH`` patches) and variates: the loss terms."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
+        AugmentVariates,
+        draw_augment_variates,
+    )
+
+    assert not torch.backends.cudnn.allow_tf32
+    b = min(model.batch_size, DETECTOR_CPU_BATCH)
+    stack = model.train_stack
+    idx = torch.arange(b, device=device)
+    batch = stack.batch(idx, int(max(1, stack.counts[:b].max())))
+    v = draw_augment_variates(torch.Generator(device=device).manual_seed(
+        seed), b, stack.images.shape[1], device)
+    card, cpu = model.train_replica(device), model.train_replica("cpu")
+    t0 = time.perf_counter()
+    got = card.train_batch(batch, v)
+    want = cpu.train_batch(tuple(t.cpu() for t in batch),
+                           AugmentVariates(*(t.cpu() for t in v)))
+    worst = max(abs(float(got[k]) - float(w)) / max(abs(float(w)), 1e-12)
+                for k, w in want.items())
+    print(f"  {kind}: one float32 step of {b} patches, card vs CPU ("
+          f"{time.perf_counter() - t0:.3f} s): losses "
+          f"{({k: float(x) for k, x in got.items()})}; max rel loss diff "
+          f"{worst:.3e} (tol {DETECTOR_STEP_RTOL})", flush=True)
+    if worst > DETECTOR_STEP_RTOL:
+        raise AssertionError(f"{kind}: the train step on the card disagrees "
+                             f"with the CPU: {got} vs {want}")
+
+
+def detector_step_probe(model, device, seed: int) -> dict:
+    """One bf16 train step of ``model`` at full width, alone: launches,
+    device ms and the costliest kernels under the profiler; wall ms and
+    peak memory unprofiled, the device's idle share (1 - device ms / that
+    wall); for Faster R-CNN the host ms of the greedy NMS pass per step
+    (its proposals' ``masked_nms``, one pass for the whole batch)."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.data.device_pipeline import (
+        draw_augment_variates,
+    )
+    from mpp_cnn_rs_object_detection_torch.models import fasterrcnn_arch
+
+    b = model.batch_size
+    stack = model.train_stack
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.arange(b, device=device)
+    batch = stack.batch(idx, int(max(1, stack.counts[:b].max())))
+    p = stack.images.shape[1]
+    greedy = fasterrcnn_arch.greedy_keep
+    nms_s = []
+
+    def timed_greedy(*args):
+        t0 = time.perf_counter()
+        out = greedy(*args)
+        nms_s.append(time.perf_counter() - t0)
+        return out
+
+    def step():
+        return model.train_batch(batch, draw_augment_variates(gen, b, p,
+                                                              device))
+
+    fasterrcnn_arch.greedy_keep = timed_greedy
+    try:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        nms_s.clear()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reps = 5
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        peak = torch.cuda.max_memory_allocated()
+        nms_ms = 1e3 * sum(nms_s) / reps
+        launches, dev_ms, kernels = profiled(step, top=10_000)
+    finally:
+        fasterrcnn_arch.greedy_keep = greedy
+    return {"batch": b, "launches": launches, "device_ms": dev_ms,
+            "wall_ms": wall_ms, "idle_share": 1.0 - dev_ms / wall_ms,
+            "greedy_nms_host_ms": nms_ms, "peak_gb": peak / 1e9,
+            "peak_over_base_gb": (peak - base) / 1e9,
+            "device_ms_by_kind": kernel_kinds(kernels),
+            "top_kernels": kernels[:5]}
+
+
+def check_detector_export(model, kind: str, root: str, seconds: float
+                          ) -> None:
+    """``-p infereval``'s files: a result pickle per val scene in the
+    detector's format, DOTA files, finite APs."""
+    import pickle
+
+    import numpy as np
+
+    from mpp_cnn_rs_object_detection_torch.utils.config import (
+        get_inference_path,
+    )
+
+    with inside(root):
+        results = get_inference_path(model.config["model_name"], "synth_cnn",
+                                     "val")
+    n_det = []
+    for i in range(CLI_SCENES):
+        with open(os.path.join(results, f"{i:04}_results.pkl"), "rb") as f:
+            res = pickle.load(f)
+        want = "poly" if model.ORIENTED else "bbox"
+        if res["detection_type"] != want:
+            raise AssertionError(f"{kind}: {res['detection_type']} results")
+        n_det.append(len(res["detection_score"]))
+    aps = {}
+    for iou in (0.05, 0.25, 0.5):
+        with open(os.path.join(results, "dota",
+                               f"metrics{iou:.2f}.json")) as f:
+            aps[iou] = json.load(f)["vehicle"]["ap"]
+    print(f"  -p infereval -m {kind}: {seconds:.3f} s; detections per val "
+          f"scene {n_det}; AP {aps}", flush=True)
+    if not all(np.isfinite(v) for v in aps.values()):
+        raise AssertionError(f"{kind}: non-finite AP {aps}")
+
+
+def detector_phase(root: str, device, seed: int) -> None:
+    """Phase 16, on phase 13's dataset: per detector ``-p train`` and
+    ``-p infereval`` through the CLI, a float32 step card vs CPU, one
+    profiled bf16 step and the projected full training."""
+    configs = detector_configs()
+    for kind, cfg in configs.items():
+        t0 = time.perf_counter()
+        model, sec = run_cnn_cli(root, kind, cfg, device, "train", "-o")
+        projection = check_detector_training(model, kind, sec)
+        t1 = time.perf_counter()
+        detector_step_vs_cpu(model, kind, device, seed)
+        t2 = time.perf_counter()
+        probe = detector_step_probe(model, device, seed)
+        t3 = time.perf_counter()
+        print(f"  {kind}: one {str(model.dtype)[6:]} step alone ("
+              f"{model.batch_size} x {model.patch_size}^2): {probe}",
+              flush=True)
+        print(f"  {kind}: projected full {DETECTOR_CONFIGS[kind]} on this "
+              f"card and host: {projection}", flush=True)
+        del model
+        inf, sec = run_cnn_cli(root, kind, cfg, device, "infereval")
+        check_detector_export(inf, kind, root, sec)
+        print(f"  {kind} seconds: train {t1 - t0:.3f}, card vs CPU "
+              f"{t2 - t1:.3f}, probe {t3 - t2:.3f}, infereval "
+              f"{time.perf_counter() - t3:.3f}", flush=True)
+
+
 def unet_reference_check(pos_model, device):
     """The U-Net on the card against the CPU on a small input, in fp32."""
     import numpy as np
@@ -2160,6 +2422,9 @@ def run(args, device: str = "cuda:0") -> int:
         t0 = time.perf_counter()
         launches_div = translation_phase(root, config, device, args.seed)
         phase("15 translators, check_div, oracle, contrast data term", t0)
+        t0 = time.perf_counter()
+        detector_phase(root, device, args.seed)
+        phase("16 CLI train|infereval -m fasterrcnn|bbavec", t0)
     finally:
         shutil.rmtree(root)
 

@@ -10,16 +10,20 @@
     python -m mpp_cnn_rs_object_detection_torch -p check_div
     python -m mpp_cnn_rs_object_detection_torch -m oracle \
         -p {infer,eval,infereval} -c config_oracle [-d DATASET]
+    python -m mpp_cnn_rs_object_detection_torch -m {fasterrcnn,bbavec} \
+        -p {train,infer,eval,infereval} -c CONFIG [-d DATASET] [-o] [-r]
 
 It runs on the CUDA device; ``main(argv, device="cpu")`` runs it on the
 CPU. ``-p train -m posnet|shapenet`` trains every CNN config: on the
 device-resident patch pipeline with ``data_loader.device_pipeline``, else
 on the host pipeline (PNG patch sets, host augmentation and targets, hard
-mining for a PosNet with ``error_update_interval``). The translators and
-the oracle run on the host; ``check_div`` holds the detection-map kernel
-to its plain version on the card (on the CPU, the plain version to
-numpy). Procedures and models of ``main.py`` that the port does not have
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+mining for a PosNet with ``error_update_interval``). The baseline
+detectors (Faster R-CNN, HBB; BBAVectors' CTRBOX, OBB) train on the device
+pipeline and infer with their DOTA export. The translators and the oracle
+run on the host; ``check_div`` holds the detection-map kernel to its plain
+version on the card (on the CPU, the plain version to numpy). The one
+procedure of ``main.py`` that the port does not have, ``data_preview``,
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -29,9 +33,8 @@ import json
 import logging
 import sys
 
-# procedures and models of main.py that are not ported -> ROADMAP.md item
+# procedures of main.py that are not ported -> ROADMAP.md item
 _NOT_PORTED_PROCEDURES = {"data_preview": "16"}
-_NOT_PORTED_MODELS = {"fasterrcnn": "14", "bbavec": "14"}
 
 
 def parse_args(argv=None):
@@ -101,10 +104,6 @@ def main(argv=None, device=None):
         return None
 
     assert args.model is not None, "-m/--model required for this procedure"
-    if args.model in _NOT_PORTED_MODELS:
-        raise NotImplementedError(
-            f"model {args.model} is not ported (ROADMAP.md item "
-            f"{_NOT_PORTED_MODELS[args.model]})")
     train = args.procedure == "train"
     config = load_config(args)
     # as main.py: a training run loads its stored model only to resume
@@ -126,6 +125,15 @@ def main(argv=None, device=None):
         cls = PosNetModel if args.model == "posnet" else ShapeNetModel
         model = cls(config, device, load=load, dataset=args.dataset,
                     overwrite=args.overwrite, train=train)
+    elif args.model in ("fasterrcnn", "bbavec"):
+        from mpp_cnn_rs_object_detection_torch.models.fasterrcnn_model import (
+            BBAVecModel,
+            FasterRCNNModel,
+        )
+
+        cls = FasterRCNNModel if args.model == "fasterrcnn" else BBAVecModel
+        model = cls(config, device, overwrite=args.overwrite, load=load,
+                    train=train, dataset=args.dataset)
     else:
         from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import MPPModel
 

@@ -1,7 +1,8 @@
 """Rotated-polygon IoU of the evaluator: ctypes binding to the C++ module.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/metrics/polyiou.py``'s
-``poly_iou_batch``, the one function the evaluator calls. The
+``poly_iou_batch``, the function the evaluator calls, and
+``poly_iou_matrix``, the rotated NMS of BBAVectors' inference. The
 library is built from ``native/polyiou.cpp`` with ``g++`` on first use
 (``native.load``); a failed build raises, it is never replaced silently.
 The numpy Sutherland-Hodgman functions below are the module's plain
@@ -26,6 +27,9 @@ def _get_lib() -> ctypes.CDLL:
         dbl_p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
         lib.poly_iou_batch.restype = None
         lib.poly_iou_batch.argtypes = [dbl_p, dbl_p, ctypes.c_int, dbl_p]
+        lib.poly_iou_matrix.restype = None
+        lib.poly_iou_matrix.argtypes = [dbl_p, ctypes.c_int, dbl_p,
+                                        ctypes.c_int, dbl_p]
         _LIB = lib
     return _LIB
 
@@ -47,6 +51,15 @@ def poly_iou_batch(det, gts) -> np.ndarray:
     out = np.zeros(len(gts), dtype=np.float64)
     if len(gts):
         _get_lib().poly_iou_batch(_as_flat8(det), gts, len(gts), out)
+    return out
+
+
+def poly_iou_matrix(dets, gts) -> np.ndarray:
+    """(N, M) IoU matrix between (N, 4, 2) and (M, 4, 2) polygon sets."""
+    dets, gts = _as_rows8(dets), _as_rows8(gts)
+    out = np.zeros((len(dets), len(gts)), dtype=np.float64)
+    if len(dets) and len(gts):
+        _get_lib().poly_iou_matrix(dets, len(dets), gts, len(gts), out)
     return out
 
 

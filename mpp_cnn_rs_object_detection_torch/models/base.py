@@ -120,10 +120,13 @@ class PatchBasedTrainer:
     ``targets(centers, params, valid)`` (device pipeline) and
     ``label_processor()`` and ``TARGET_KEYS`` (host pipeline: its targets
     and the keys its loss reads), and holds ``config``, ``dataset``,
-    ``device``, ``logger`` and ``save_path``."""
+    ``device``, ``logger`` and ``save_path``. A model with
+    ``DEVICE_PIPELINE_ONLY`` (the detectors) takes the device pipeline
+    whatever ``data_loader.device_pipeline`` says."""
 
     state: TrainState
     TARGET_KEYS: Tuple[str, ...] = ()
+    DEVICE_PIPELINE_ONLY = False
 
     def init_training(self, dtype: torch.dtype, resume: bool) -> None:
         """Fresh flax-initialised modules (or, with ``resume``, the newest
@@ -151,7 +154,8 @@ class PatchBasedTrainer:
         self.epoch_seconds: List[float] = []
         dl = self.config["data_loader"]
         self.dataset_update_interval = dl["dataset_update_interval"]
-        self.device_pipeline = bool(dl.get("device_pipeline"))
+        self.device_pipeline = self.DEVICE_PIPELINE_ONLY or bool(
+            dl.get("device_pipeline"))
         if self.device_pipeline:
             self.regen_stacks(make_val=True)
             return

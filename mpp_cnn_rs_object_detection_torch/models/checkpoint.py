@@ -10,9 +10,12 @@ the ``msgpack`` package, which the GPU host lacks. The writer is its inverse
 and packs a tree the way ``flax.serialization.to_bytes`` does (dict keys in
 sorted order). Weights are converted in memory; ``train_state_to_jax`` /
 ``train_state_from_jax`` carry a whole training state across: parameters,
-BatchNorm statistics and optax adam's ``(ScaleByAdamState(count, mu, nu),
-EmptyState())``, which flax stores as ``{"0": {"count", "mu", "nu"}, "1":
-{}}``.
+BatchNorm statistics and the optimizer's state: optax adam's
+``(ScaleByAdamState(count, mu, nu), EmptyState())``, which flax stores as
+``{"0": {"count", "mu", "nu"}, "1": {}}``, or the detectors'
+``chain(clip_by_global_norm, adam(schedule))``, ``(EmptyState(),
+(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)))``, stored
+as ``{"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {"count"}}}``.
 """
 
 from __future__ import annotations
@@ -283,14 +286,19 @@ def params_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     Conv kernels go HWIO -> OIHW; flax ``ConvTranspose`` kernels (applied
     without a flip) go to torch ``ConvTranspose2d``'s (in, out, kh, kw) WITH
-    the spatial flip; BatchNorm ``scale``/``bias``/``mean``/``var`` become
-    ``weight``/``bias``/``running_mean``/``running_var``."""
+    the spatial flip; ``Dense`` kernels (in, out) to ``nn.Linear``'s (out,
+    in); BatchNorm ``scale``/``bias``/``mean``/``var`` become
+    ``weight``/``bias``/``running_mean``/``running_var``. A torch module
+    named as the flax one (the detectors' ``FasterRCNN`` and ``CTRBOX``, the
+    U-Nets) takes the result as its state_dict."""
     sd: Dict[str, torch.Tensor] = {}
     for path, v in _flatten(variables.get("params", {})):
         parent, leaf = path.rsplit(".", 1)
         module = parent.rsplit(".", 1)[-1]
         arr = np.asarray(v, np.float32)
-        if leaf == "kernel":
+        if leaf == "kernel" and arr.ndim == 2:
+            sd[f"{parent}.weight"] = torch.from_numpy(arr.T.copy())
+        elif leaf == "kernel":
             if module.startswith("ConvTranspose"):
                 arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
             else:
@@ -334,6 +342,8 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             _nest(stats, f"{parent}.{leaf[len('running_'):]}", arr.copy())
         elif leaf == "bias":
             _nest(params, f"{parent}.bias", arr.copy())
+        elif leaf == "weight" and arr.ndim == 2:
+            _nest(params, f"{parent}.kernel", np.ascontiguousarray(arr.T))
         elif leaf == "weight" and arr.ndim == 4:
             if module.startswith("ConvTranspose"):
                 kernel = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
@@ -350,35 +360,58 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 def train_state_to_jax(params: Dict[str, torch.Tensor],
                        buffers: Dict[str, torch.Tensor],
                        mu: Dict[str, torch.Tensor],
-                       nu: Dict[str, torch.Tensor], count: int
-                       ) -> Dict[str, Any]:
+                       nu: Dict[str, torch.Tensor], count: int,
+                       chain: bool = False) -> Dict[str, Any]:
     """A training state as flax stores it: ``params``, ``mu`` and ``nu``
     are keyed by the same dotted parameter names (their first component is
     the flax tree's, e.g. ``net.`` / ``div.`` for a PosNet), ``buffers``
-    the BatchNorm module's running statistics. Returns ``{"params",
-    "batch_stats", "opt_state"}`` with numpy leaves."""
+    the BatchNorm modules' running statistics. Returns ``{"params",
+    "batch_stats", "opt_state"}`` with numpy leaves; ``chain`` stores the
+    optimizer state in the detectors' clip + scheduled adam layout."""
+    adam = {"count": np.asarray(count, np.int32),
+            "mu": params_to_jax(mu)["params"],
+            "nu": params_to_jax(nu)["params"]}
+    opt_state = ({"0": {}, "1": {"0": adam, "1": {
+        "count": np.asarray(count, np.int32)}}} if chain
+        else {"0": adam, "1": {}})
     return {
         "params": params_to_jax(params)["params"],
         "batch_stats": params_to_jax(buffers)["batch_stats"],
-        "opt_state": {"0": {"count": np.asarray(count, np.int32),
-                            "mu": params_to_jax(mu)["params"],
-                            "nu": params_to_jax(nu)["params"]},
-                      "1": {}},
+        "opt_state": opt_state,
     }
+
+
+def _adam_state(opt_state: Any):
+    """(adam's state, whether it sits in the chain layout), or (None,
+    None) for a tree that holds neither layout."""
+    if not isinstance(opt_state, dict):
+        return None, None
+    keys = {"count", "mu", "nu"}
+    first = opt_state.get("0")
+    if isinstance(first, dict) and keys <= set(first):
+        return first, False
+    second = opt_state.get("1")
+    inner = second.get("0") if isinstance(second, dict) else None
+    if first == {} and isinstance(inner, dict) and keys <= set(inner) \
+            and "count" in second.get("1", {}):
+        return inner, True
+    return None, None
 
 
 def train_state_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse of ``train_state_to_jax`` for a flax state tree (numpy
     leaves, e.g. a checkpoint): ``params``, ``mu``, ``nu`` (dotted names ->
-    tensors), ``batch_stats`` (running statistics as a state_dict) and
-    ``count``; the last three are None where the tree has no adam state."""
+    tensors), ``batch_stats`` (running statistics as a state_dict),
+    ``count`` and ``chain`` (the layout it was stored in); the last four
+    are None where the tree has no adam state in either layout."""
     out = {"params": params_from_jax({"params": tree["params"]}),
            "batch_stats": params_from_jax(
                {"batch_stats": tree.get("batch_stats", {})}),
-           "mu": None, "nu": None, "count": None}
-    adam = (tree.get("opt_state") or {}).get("0")
-    if isinstance(adam, dict) and {"count", "mu", "nu"} <= set(adam):
+           "mu": None, "nu": None, "count": None, "chain": None}
+    adam, chain = _adam_state(tree.get("opt_state"))
+    if adam is not None:
         out["mu"] = params_from_jax({"params": adam["mu"]})
         out["nu"] = params_from_jax({"params": adam["nu"]})
         out["count"] = int(adam["count"])
+        out["chain"] = chain
     return out

@@ -6,9 +6,10 @@ do on one card):
 
   - ``TrainState``: the modules being trained (their parameters are the
     fp32 master weights, their BatchNorm buffers the running statistics),
-    optax adam's state over the parameters (``mpp/optim.Optimizer``, the
-    formulas written out, one ``torch._foreach_*`` call per formula) and
-    the step count;
+    the optimizer's state over the parameters (``mpp/optim.Optimizer``, the
+    formulas written out, one ``torch._foreach_*`` call per formula: optax
+    adam for the CNNs, the detectors' global-norm clip + adam on a
+    warmup-cosine schedule) and the step count;
   - ``train_step`` / ``eval_step``: the bodies of the JAX package's
     ``make_device_epoch_fns`` scans. A step returns its metrics as device
     scalars; the epoch loop reads them once per epoch (``mean_metrics``),
@@ -57,16 +58,22 @@ class TrainState:
     """``modules`` maps each top-level key of the flax params tree to its
     module ("" for a module that is the tree's root); ``stats_key`` names
     the module whose BatchNorm statistics are the tree's
-    ``batch_stats``."""
+    ``batch_stats``. With ``clip_norm`` the optimizer is the detectors'
+    ``optax.chain(clip_by_global_norm(clip_norm), adam(schedule))``, whose
+    state flax stores in another layout than plain adam's."""
 
     def __init__(self, modules: Dict[str, nn.Module], stats_key: str,
-                 learning_rate: float):
+                 learning_rate: float,
+                 schedule: Optional[Callable[[int], float]] = None,
+                 clip_norm: Optional[float] = None):
         self.modules = modules
         self.stats_module = modules[stats_key]
         self.params: Dict[str, nn.Parameter] = {
             (f"{key}.{name}" if key else name): p
             for key, m in modules.items() for name, p in m.named_parameters()}
-        self.opt = Optimizer(self.params, learning_rate)
+        self.chain = clip_norm is not None
+        self.opt = Optimizer(self.params, learning_rate, schedule=schedule,
+                             clip_norm=clip_norm)
         self.step = 0
 
     def train(self, mode: bool = True) -> None:
@@ -87,7 +94,8 @@ class TrainState:
     def to_jax(self) -> Dict:
         """``{"params", "batch_stats", "opt_state"}`` in flax's layout."""
         return train_state_to_jax(self.params, self.buffers(), self.opt.mu,
-                                  self.opt.nu, self.opt.count)
+                                  self.opt.nu, self.opt.count,
+                                  chain=self.chain)
 
     def load_jax(self, tree: Dict, what: str = "state") -> bool:
         """Take a flax state tree (numpy leaves). Returns whether its adam
@@ -102,7 +110,8 @@ class TrainState:
                 if name in st["batch_stats"] and \
                         not name.endswith("num_batches_tracked"):
                     b.copy_(st["batch_stats"][name])
-        if st["count"] is None or set(st["mu"]) != set(self.params):
+        if st["count"] is None or st["chain"] != self.chain \
+                or set(st["mu"]) != set(self.params):
             logging.warning(f"{what}: stored opt_state does not match the "
                             "current optimizer stack; restored weights only "
                             "(optimizer reinitialised)")

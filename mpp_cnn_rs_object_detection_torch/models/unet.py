@@ -42,20 +42,23 @@ def infer_pad_hw(h: int, w: int) -> tuple:
     return side, side
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """flax ``nn.BatchNorm(use_running_average=False)`` of an fp32 NCHW
-    tensor: the batch mean and the biased variance ``max(E[x^2] - E[x]^2,
-    0)`` over (N, H, W), ``(x - mean) * (rsqrt(var + eps) * scale) +
-    bias``, and the running statistics moved to ``0.9 * ra + 0.1 * stat``
-    (torch's own batch norm would store the unbiased variance)."""
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d,
+                     momentum: float = BN_MOMENTUM) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=False, momentum=momentum)``
+    of an fp32 NCHW tensor: the batch mean and the biased variance
+    ``max(E[x^2] - E[x]^2, 0)`` over (N, H, W), ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``, and the running statistics moved
+    to ``momentum * ra + (1 - momentum) * stat`` (torch's own batch norm
+    would store the unbiased variance). The U-Nets set momentum 0.9, the
+    detectors' backbones keep flax's default 0.99."""
     mean = x.mean(dim=(0, 2, 3))
     mean2 = torch.square(x).mean(dim=(0, 2, 3))
     var = torch.clamp(mean2 - torch.square(mean), min=0.0)
     with torch.no_grad():
-        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
-                              + (1 - BN_MOMENTUM) * mean)
-        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
-                             + (1 - BN_MOMENTUM) * var)
+        bn.running_mean.copy_(momentum * bn.running_mean
+                              + (1 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var
+                             + (1 - momentum) * var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     return ((x - mean[:, None, None]) * mul[:, None, None]
             + bn.bias[:, None, None])
@@ -63,24 +66,28 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 
 def init_like_flax_(module: nn.Module, generator: torch.Generator) -> None:
     """Initialise ``module`` with flax's default initialisers, drawn from
-    ``generator``: lecun-normal conv kernels (fan-in = in x kh x kw, also
-    for transposed convs), zero biases, BatchNorm scale 1 and bias 0 with
-    mean-0 / var-1 statistics. JAX's own draws (threefry) are not
-    reproducible in torch; a state carried over from JAX is exact
+    ``generator``: lecun-normal conv and dense kernels (fan-in = in x kh x
+    kw, also for transposed convs; in for ``nn.Linear``), biases zero or
+    the module's own constant ``flax_bias_init`` (as a flax
+    ``bias_init=constant(c)``), BatchNorm scale 1 and bias 0 with mean-0 /
+    var-1 statistics. JAX's own draws (threefry) are not reproducible in
+    torch; a state carried over from JAX is exact
     (``models/checkpoint.py:train_state_from_jax``)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = m.weight
                 in_ch = w.shape[0] if isinstance(m, nn.ConvTranspose2d) \
                     else w.shape[1]
-                std = (1.0 / (in_ch * w.shape[2] * w.shape[3])) ** 0.5 \
-                    / _TRUNC_STD
+                fan_in = in_ch * (1 if isinstance(m, nn.Linear)
+                                  else w.shape[2] * w.shape[3])
+                std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
                 z = torch.empty(w.shape, dtype=torch.float32)
                 nn.init.trunc_normal_(z, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)
                 w.copy_(z * std)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.fill_(getattr(m, "flax_bias_init", 0.0))
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
 

@@ -109,4 +109,14 @@ void poly_iou_batch(const double* det, const double* gts, int n, double* out) {
   }
 }
 
+// Full pairwise: n dets x m gts, row-major (n, m).
+void poly_iou_matrix(const double* dets, int n, const double* gts, int m,
+                     double* out) {
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j < m; ++j) {
+      out[i * m + j] = quad_iou(dets + 8 * i, gts + 8 * j);
+    }
+  }
+}
+
 }  // extern "C"

@@ -1,8 +1,8 @@
 """The PyTorch port, chip_smoke.py and bench_torch.py must run where the JAX
-stack is absent: with jax, flax, optax, msgpack, PIL, OpenCV, pandas, ninja
-and the JAX package blocked, every module of the port and both scripts
-import, the checkpoint reader decodes a checked-in flax checkpoint, and the
-synthetic dataset writer and the PNG codec run."""
+stack is absent: with jax, flax, optax, msgpack, PIL, OpenCV, pandas, ninja,
+torchvision and the JAX package blocked, every module of the port and both
+scripts import, the checkpoint reader decodes a checked-in flax checkpoint,
+and the synthetic dataset writer and the PNG codec run."""
 
 import ast
 import os
@@ -12,7 +12,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "mpp_cnn_rs_object_detection_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2",
-           "pandas", "ninja", "mpp_cnn_rs_object_detection_tpu")
+           "pandas", "ninja", "torchvision",
+           "mpp_cnn_rs_object_detection_tpu")
 CKPT = os.path.join(ROOT, "artifacts", "models_storage", "posnet",
                     "pos_r2cp_tta", "model.msgpack")
 
