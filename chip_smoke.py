@@ -53,8 +53,9 @@ Phases (each prints one line with its seconds; any failure raises):
      model store with the same depth cut, refine, score blend and backfill
      on; DOTA files and finite APs;
   8. a copy of that config with ``restarts: 2`` and ``polish_steps: 64``,
-     which takes the per-image path (one scene in memory at a time): per
-     scene the lanes' energies, the lane kept (the least energy) and U
+     one segment of ``CUT_SEG`` supersteps per scene, which takes the
+     per-image path (one scene in memory at a time): per scene the lanes'
+     energies, the lane kept (the least energy) and U
      before and after polish, which must not rise;
   9. on phase 6's workspace, ``-p train -m mpp`` on a copy of the flagship
      config (depth cut: ``TRAIN_EPOCHS`` of its 8 epochs on
@@ -67,7 +68,7 @@ Phases (each prints one line with its seconds; any failure raises):
   10. a copy of ``MANUAL_CONFIG`` (the legacy setup's manual mode) on the
      flagship's CNNs: ``-p infereval`` calibrates (a finite threshold),
      builds ``hierarchical_fixed`` (weights summing to 1 per group) and
-     runs one segment per scene: finite APs;
+     runs one segment of ``CUT_SEG`` supersteps per scene: finite APs;
   11. a copy of ``TILED_CONFIG`` (tiled scene mode, sequential chain,
      manual mode) on the flagship's CNNs, depth-cut to ``TILED_BURN_IN``
      burn-in moves in segments of ``TILED_SEGMENT``: every scene's 25
@@ -80,8 +81,9 @@ Phases (each prints one line with its seconds; any failure raises):
      flagship's CNNs for one 341-superstep segment: accepted moves by
      kind, the carried cache and energy against a rebuild, finite APs;
      then on phase 3's scene with the flagship's model one in-memory
-     segment with the split/merge pair and one with the switched move
-     type (their energies against a rebuild; splits and merges accepted),
+     segment of ``SM_MEMORY_SEG`` supersteps with the split/merge pair
+     and one with the switched move type (their energies against a
+     rebuild; splits and merges accepted),
      and the launches and device ms of one superstep with each move set;
   13. CNN training on the device-resident patch pipeline at full width
      (U-Net [32, 64, 128, 256], bf16 convolutions, patches of 128^2,
@@ -128,7 +130,7 @@ Phases (each prints one line with its seconds; any failure raises):
      infereval -m oracle`` on the translated val set (AP 1.000 at every
      IoU), then the CNN-free data term (``CONTRAST_SETUP``: craciun2,
      manual weights) on the flagship's CNN results: a copy of
-     ``MANUAL_CONFIG`` for one 341-superstep segment per scene (finite
+     ``MANUAL_CONFIG`` for one ``CUT_SEG``-superstep segment per scene (finite
      APs; the launches and device ms of one superstep alone) and a copy
      of ``TILED_CONFIG`` for ``CONTRAST_TILED`` sequential steps;
   16. the baseline detectors on phase 13's dataset: copies of
@@ -142,10 +144,27 @@ Phases (each prints one line with its seconds; any failure raises):
      the idle share, the greedy NMS's host ms, peak memory), the
      projected full training, then ``-p infereval`` (result pickles,
      DOTA files, finite APs).
+  17. the meshes on one card, as ``[cuda:0] * n``: phase 3's scene in
+     memory for ``MESH_SUPERSTEPS`` supersteps in 1, 2 and 4 row bands
+     (and 1 and 2 with the split/merge pair) from one generator seed: the
+     same alive set, states within ``MESH_XY_TOL``, accepts and energy,
+     the carried cache and energy against a rebuild, ms per superstep,
+     and the launches of one 2-band superstep; ``tile_mesh`` (the scene's
+     25 tiles, 64 sequential moves, unsplit and in 2 groups) and
+     ``batch_mesh`` (phase 6's val scenes as B = 2, on one device and
+     over 2): identical, or phase 4's check; the flagship PosNet in
+     float32 over 4 bands with a 64-row halo against the whole scene
+     zero-padded by the halo (rtol 2e-4, atol 2e-5), then one kernel
+     launch on the banded planes against the plain version on the whole
+     scene's; and ``-p infereval`` on a copy of ``MESH_CONFIG``
+     (``scene_mesh: true``, a no-op with one visible card) on the
+     flagship's CNNs, one segment of ``MESH_SEG_SUPER`` supersteps per
+     scene, with both overlay PNGs per scene (which phases 6-12 and 15
+     check too).
 Then one JSON line per kernel table (its launches: every path's, each
-counted from 0 -- phases 3, 6, 9, 13, 14 and 15's ``check_div``; the
-others reuse CNN results), the card's name and power limit, and the result
-line ``{"ok": true, "device": {...}}`` last.
+counted from 0 -- phases 3, 6, 9, 13, 14, 15's ``check_div`` and 17's
+banded PosNet; the others reuse CNN results), the card's name and power
+limit, and the result line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -176,8 +195,15 @@ TILED_CONFIG = "mpp_hrcM"
 TILED_BURN_IN, TILED_SEGMENT = 256, 256
 # its resume check: 256 burn-in moves + 2 x 128, killed after 256
 RESUME_BURN_IN, RESUME_SEGMENT = 256, 256
-# phase 12: the superstep's split/merge pair, trained
+# phase 12: the superstep's split/merge pair, trained; its in-memory
+# segments with the pair and with the move switch run SM_MEMORY_SEG of the
+# flagship's 341 supersteps since phase 17 was added (341 before)
 SPLIT_MERGE_CONFIG = "mpp_log_r10sm"
+SM_MEMORY_SEG = 128
+# phases 8, 10 and 15's exact CLI copies: one segment of CUT_SEG of the
+# configs' 341 supersteps per scene since phase 17 was added (341 before),
+# to keep the script within its 600 s
+CUT_SEG = 170
 # phases 7 and 8: the trained extension config on the same CNNs
 EXT_CONFIG = "mpp_log_r12tta"
 RESTARTS, POLISH_STEPS = 2, 64
@@ -255,6 +281,23 @@ DETECTOR_MIN_CONFIDENCE = 0.02
 # the greedy NMS on both sides of the same float noise), on the first
 # DETECTOR_CPU_BATCH patches of a batch (the CPU's share of the phase)
 DETECTOR_STEP_RTOL, DETECTOR_CPU_BATCH = 1e-3, 8
+# phase 17: the meshes on one card, as ``[cuda:0] * n`` (the same
+# arithmetic and copies as n cards, but for the copies between distinct
+# cards): the banded chain for MESH_SUPERSTEPS supersteps at MESH_BANDS,
+# the tile and batch splits over 2 for MESH_SUPERSTEPS steps and
+# supersteps (64 each, and MESH_SEG_SUPER 128, until the phase took 71.7 s
+# alone on an H100; cut to fit it in 45 s), the banded PosNet (halo
+# MESH_HALO)
+# at the tolerance of tests/test_parallel.py:72, and a copy of
+# MESH_CONFIG (scene_mesh: true) cut to one segment of MESH_SEG_SUPER
+# supersteps per scene
+MESH_SUPERSTEPS, MESH_BANDS, MESH_HALO = 32, (2, 4), 64
+MESH_CONFIG, MESH_SEG_SUPER = "mpp_r2", 64
+MESH_XY_TOL, MESH_ENERGY_RTOL = 1e-5, 1e-4
+UNET_RTOL, UNET_ATOL = 2e-4, 2e-5
+# the kernel on the banded planes against the plain version on the whole
+# scene's planes, which differ within UNET_RTOL / UNET_ATOL
+MESH_MAP_TOL = 1e-4
 # ~50 ms of the card's clock: longer than the host takes to queue a timed
 # run of calls
 SLEEP_CYCLES = 100_000_000
@@ -474,10 +517,11 @@ def load_models(config, device, seed: int):
 
 
 def mpp_config_copy(root: str, base: str, name: str, store: bool = True,
-                    blocks=None, **inference) -> str:
+                    blocks=None, seg_super: int = 341, **inference) -> str:
     """``model_configs/mpp/<base>.json`` for the synthetic dataset under
     ``root``, named ``name``, with the depth cut -- a ``max_iter`` stopping
-    block of one 341-superstep segment per scene -- the config's blocks
+    block of one segment per scene, of ``seg_super`` supersteps (the
+    configs' own 341, or a shorter segment) -- the config's blocks
     updated from ``blocks`` (block name -> entries) and its ``inference``
     block from ``inference``. With ``store``, the model store gets
     ``base``'s trained calibration and combiner. Returns the config's
@@ -499,8 +543,10 @@ def mpp_config_copy(root: str, base: str, name: str, store: bool = True,
     assert budget.seg_super == 341, budget
     cfg["model_name"] = name
     cfg["dataset"]["dataset"] = "synth_smoke"
+    if seg_super != budget.seg_super:
+        cfg["inference"]["segment_size"] = seg_super * budget.ms_tile
     cfg["inference"]["rjmcmc_params"]["stopping"] = {
-        "kind": "max_iter", "max_iter": budget.seg_super * budget.mps}
+        "kind": "max_iter", "max_iter": seg_super * budget.mps}
     cfg["inference"].update(inference)
     for block, entries in (blocks or {}).items():
         cfg[block].update(entries)
@@ -604,7 +650,8 @@ def run_cli(root: str, cfg_path: str, device, procedure: str = "infereval"):
 
 
 def check_exports(root: str, model, name: str) -> dict:
-    """Both scenes' result pickles, ``dota/`` and ``dota-SV/`` with every
+    """Both scenes' result pickles, their detection and GT overlays (RGB
+    PNGs of the scene's shape), ``dota/`` and ``dota-SV/`` with every
     metrics JSON, finite APs, and no chain checkpoint left. Returns the
     APs."""
     import numpy as np
@@ -612,6 +659,7 @@ def check_exports(root: str, model, name: str) -> dict:
     from mpp_cnn_rs_object_detection_torch.utils.config import (
         get_inference_path,
     )
+    from mpp_cnn_rs_object_detection_torch.utils.png import png_header
 
     with inside(root):
         results_dir = get_inference_path(name, "synth_smoke", "val")
@@ -619,6 +667,10 @@ def check_exports(root: str, model, name: str) -> dict:
     for i in range(CLI_SCENES):
         assert os.path.exists(os.path.join(results_dir,
                                            f"{i:04}_results.pkl"))
+        for kind in ("detection", "gt"):
+            shape = png_header(os.path.join(results_dir,
+                                            f"{i:04}_{kind}.png"))
+            assert shape == (HEIGHT, WIDTH, 3), (kind, shape)
         for kind in ("chains", "tiles"):
             assert not os.path.exists(os.path.join(
                 results_dir, f"{i:04}_{kind}.ck.npz")), kind
@@ -719,7 +771,7 @@ def restarts_phase(root: str, device) -> None:
 
     name = f"{EXT_CONFIG}_restarts"
     cfg_path = mpp_config_copy(root, EXT_CONFIG, name, restarts=RESTARTS,
-                               polish_steps=POLISH_STEPS)
+                               polish_steps=POLISH_STEPS, seg_super=CUT_SEG)
     model, t_cli = run_cli(root, cfg_path, device)
     sec = model.seconds
     aps = check_exports(root, model, name)
@@ -911,7 +963,8 @@ def manual_phase(root: str, config, device) -> None:
     cfg_path = mpp_config_copy(root, MANUAL_CONFIG, name, store=False,
                                blocks={"dataset": {
                                    k: config["dataset"][k] for k in
-                                   ("position_model", "shape_model")}})
+                                   ("position_model", "shape_model")}},
+                               seg_super=CUT_SEG)
     dk.KERNEL.launches = 0
     model, t_cli = run_cli(root, cfg_path, device)
     comb = model.energy_model
@@ -928,7 +981,7 @@ def manual_phase(root: str, config, device) -> None:
     if not np.isfinite(cal["detection_threshold"]):
         raise AssertionError(f"detection threshold {cal}")
     stops = {(r.supersteps, r.stopped) for r in model.results.values()}
-    if stops != {(341, True)}:
+    if stops != {(CUT_SEG, True)}:
         raise AssertionError(f"{name}: not one segment per scene: {stops}")
     aps = check_exports(root, model, name)
     sec, tsec = model.seconds, model.train_seconds
@@ -1151,7 +1204,10 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
     with the split/merge pair and one with the switched move type, and
     one superstep of each move set alone."""
     from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
-    from mpp_cnn_rs_object_detection_torch.mpp.scene import run_exact_scene
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import (
+        run_exact_scene,
+        superstep_budget,
+    )
 
     name = f"{SPLIT_MERGE_CONFIG}_flagship_cnns"
     base = mpp_model.load_mpp_config(SPLIT_MERGE_CONFIG)
@@ -1194,6 +1250,8 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
     # phase 3's scene, in memory, one segment with each new move set
     opts = mpp_model.chain_options(inference.config)
     opts["stopping"] = None
+    opts["segment_size"] = SM_MEMORY_SEG * superstep_budget(
+        *data.shape, inference.params).ms_tile
     kinds = {}
     for label, moves in (("split/merge", dict(split_merge=True)),
                          ("move switch", dict(move_switch=True))):
@@ -1974,13 +2032,14 @@ def translation_phase(root: str, config, device, seed: int) -> int:
     # (e) the contrast data term, exact then tiled, on phase 6's CNNs
     name = f"{MANUAL_CONFIG}_contrast"
     model, t_cli = run_cli(root, contrast_config(root, config, MANUAL_CONFIG,
-                                                 name), device)
+                                                 name, seg_super=CUT_SEG),
+                           device)
     if model.energy_setup.spec.names != CONTRAST_NAMES or \
             model.energy_model.kind != "manual_hierarchical":
         raise AssertionError(f"{name}: {model.energy_setup.spec} "
                              f"{model.energy_model.kind}")
     stops = {(r.supersteps, r.stopped) for r in model.results.values()}
-    if stops != {(341, True)}:
+    if stops != {(CUT_SEG, True)}:
         raise AssertionError(f"{name}: not one segment per scene: {stops}")
     aps = check_exports(root, model, name)
     with inside(root):
@@ -1990,7 +2049,8 @@ def translation_phase(root: str, config, device, seed: int) -> int:
     sec = model.seconds
     print(f"  CLI -c {name} (exact, contrast craciun2, manual): "
           f"{t_cli:.3f} s; chains {sec['chain']:.3f} s "
-          f"({1e3 * sec['chain'] / (341 * CLI_SCENES):.3f} ms/superstep); "
+          f"({1e3 * sec['chain'] / (CUT_SEG * CLI_SCENES):.3f} "
+          f"ms/superstep); "
           f"{ap_line(model, aps)}; one superstep alone: {probe['launches']}"
           f" launches, {probe['device_ms']:.3f} device ms", flush=True)
     name = f"{TILED_CONFIG}_contrast"
@@ -2248,6 +2308,309 @@ def detector_phase(root: str, device, seed: int) -> None:
               f"{time.perf_counter() - t3:.3f}", flush=True)
 
 
+def banded_chain_phase(inference, data, device, seed: int) -> None:
+    """Phase 17 (a): phase 3's scene in memory (1024 bucket, the
+    flagship's model and combiner) for MESH_SUPERSTEPS supersteps, one
+    band and then MESH_BANDS bands on one card from the same generator
+    seed: the same alive set, coordinates and marks within MESH_XY_TOL,
+    accepts and final energy, each carried cache and energy against a
+    rebuild; the same at 2 bands with the split/merge pair; then the
+    launches and device ms of one banded superstep at 2 bands."""
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp import scene
+    from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import (
+        CELL,
+        make_banded_step,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+        build_cache,
+        energy_from_cache,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.state import (
+        expand_lanes,
+        lane,
+        state_from_arrays,
+    )
+    from mpp_cnn_rs_object_detection_torch.parallel.sharded_scene import (
+        run_exact_scene_chain,
+    )
+
+    setup, comb = inference.setup, inference.comb
+    target = scene.scene_shape_bucket(*data.shape)
+    data, c0, m0, _ = scene._prepare(data, setup, target, "naive", device)
+    cap = scene._capacity(*data.shape, inference.config.get("capacity", 256),
+                          len(c0))
+    maps = expand_lanes(setup.make_maps(data), 1)
+    kd = expand_lanes(setup.make_kernel_data(data, max(1, len(c0))), 1)
+    init = expand_lanes(state_from_arrays(c0[:cap], m0[:cap], capacity=cap,
+                                          device=device), 1)
+    cache0 = build_cache(init, maps, setup.spec)
+    budget = scene.superstep_budget(*data.shape, inference.params)
+
+    def run(n, **moves):
+        gens = [torch.Generator(device=device).manual_seed(seed)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, ca, stats = run_exact_scene_chain(
+            gens, init, maps, setup.spec, comb, kd, MESH_SUPERSTEPS,
+            t0=1.0, alpha_t=budget.alpha_super, t_target=budget.t_target,
+            cache=cache0, mesh=None if n == 1 else [device] * n, **moves)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / MESH_SUPERSTEPS
+        return scene.ChainOutcome(state=lane(st, 0), cache=lane(ca, 0),
+                                  energy=stats.final_energy[0],
+                                  maps=lane(maps, 0)), stats, ms
+
+    def check(got, want, what):
+        (a, sa, _), (b, sb, _) = got, want
+        if not torch.equal(a.state.alive, b.state.alive):
+            raise AssertionError(f"{what}: another alive set")
+        err = max(float((a.state.xy - b.state.xy).abs().max()),
+                  float((a.state.marks - b.state.marks).abs().max()))
+        if err > MESH_XY_TOL:
+            raise AssertionError(f"{what}: states off by {err}")
+        if int(sa.accepted.sum()) != int(sb.accepted.sum()):
+            raise AssertionError(f"{what}: accepted {sa.accepted.sum()} "
+                                 f"against {sb.accepted.sum()}")
+        e1, e2 = float(a.energy), float(b.energy)
+        if abs(e1 - e2) > MESH_ENERGY_RTOL * max(1.0, abs(e2)):
+            raise AssertionError(f"{what}: energy {e1} against {e2}")
+        u, u_fresh = check_carried(a, setup, comb, what)
+        return err, u, u_fresh
+
+    for label, moves, bands in (("default moves", {}, MESH_BANDS),
+                                ("split/merge", dict(split_merge=True),
+                                 MESH_BANDS[:1])):
+        one = run(1, **moves)
+        line = [f"1 band {one[2]:.3f}"]
+        for n in bands:
+            got = run(n, **moves)
+            err, u, u_fresh = check(got, one, f"{label}, {n} bands")
+            line.append(f"{n} bands {got[2]:.3f} (states off by {err:.2e}"
+                        f"; energy {u:.4f}, rebuilt {u_fresh:.4f})")
+        print(f"  banded chain, {label}, {MESH_SUPERSTEPS} supersteps, K="
+              f"{cap}, ms per superstep (band set-up included): "
+              + "; ".join(line) + f"; {int(one[0].state.n_points)} points, "
+              f"{int(one[1].accepted.sum())} accepted, the same in every "
+              "run", flush=True)
+    h, w = data.shape
+    step = make_banded_step(maps, setup.spec, comb, kd, budget.alpha_super,
+                            budget.t_target, max(h, w) // (2 * CELL) + 1,
+                            [device] * 2)
+    u0 = energy_from_cache(init, maps, setup.spec, comb, cache0)
+    carry = ([init] * 2, [cache0] * 2, [u0] * 2, 1.0)
+    gens = [torch.Generator(device=device).manual_seed(0)]
+    for _ in range(2):
+        carry, _ = step(carry, gens)
+    launches, dev_ms = profiled(lambda: step(carry, gens))
+    print(f"  one banded superstep, 2 bands: {launches} launches, "
+          f"{dev_ms:.3f} device ms", flush=True)
+
+
+def split_runs_phase(root: str, config, inference, data, device,
+                     seed: int) -> None:
+    """Phase 17 (b): ``tile_mesh`` -- phase 3's scene in the tiled mode's
+    25 tiles on the sequential chain, unsplit and in 2 groups on one card,
+    64 moves -- and ``batch_mesh`` -- phase 6's val scenes as B = 2 on one
+    device and over 2, one segment of MESH_SUPERSTEPS: identical results,
+    or, where the card's reductions differ in the last bit between the
+    lane counts, phase 4's check (the same first step; final counts or
+    energies within the chains' spread). Prints which held."""
+    import numpy as np
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
+        load_image_w_maps,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.mpp_model import (
+        chain_options,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import RJMCMCParams
+    from mpp_cnn_rs_object_detection_torch.mpp.scene import (
+        run_exact_scenes_batched,
+        run_tiled_scene,
+        superstep_budget,
+    )
+
+    setup, comb = inference.setup, inference.comb
+
+    def same(a, b):
+        return all(np.array_equal(getattr(x, f), getattr(y, f))
+                   for x, y in zip(a, b)
+                   for f in ("centers", "marks", "scores"))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def tiled(mesh, steps):
+        params = RJMCMCParams(n_steps=steps - 1, t0=1.0, alpha_t=0.999,
+                              n_samples=0, samples_interval=1)
+        return [run_tiled_scene(data, setup, comb, params, seed=seed,
+                                patch_size=256, min_overlap=32,
+                                capacity=256, device=device, mesh=mesh)]
+
+    def batched(mesh, seg):
+        with inside(root):
+            datas = [load_image_w_maps(i, "synth_smoke", "val",
+                                       config["dataset"]["position_model"],
+                                       config["dataset"]["shape_model"])
+                     for i in range(CLI_SCENES)]
+        kw = dict(chain_options(inference.config), stopping=None,
+                  segment_size=seg * superstep_budget(
+                      HEIGHT, WIDTH, inference.params).ms_tile)
+        return run_exact_scenes_batched(
+            datas, setup, comb, inference.params,
+            seeds=[seed + i for i in range(CLI_SCENES)], max_segments=1,
+            device=device, mesh=mesh, **kw)
+
+    mesh = [device] * 2
+    for what, fn, full in (("tile_mesh", tiled, MESH_SUPERSTEPS),
+                           ("batch_mesh", batched, MESH_SUPERSTEPS)):
+        (one, t1), (two, t2) = timed(lambda: fn(None, full)), \
+            timed(lambda: fn(mesh, full))
+        n_det = [len(r.centers) for r in one]
+        head = (f"  {what}: {t1:.3f} s on one device, {t2:.3f} s over 2; "
+                f"detections {n_det}")
+        if same(one, two):
+            print(f"{head}; identical results", flush=True)
+            continue
+        f1, f2 = fn(None, 1), fn(mesh, 1)
+        if not all(np.allclose(a.centers, b.centers, atol=FIRST_STEP_TOL)
+                   and np.allclose(a.marks, b.marks, atol=FIRST_STEP_TOL)
+                   for a, b in zip(f1, f2)):
+            raise AssertionError(f"{what}: the first step differs")
+        if what == "batch_mesh":
+            pairs = [(float(a.chain.energy), float(b.chain.energy))
+                     for a, b in zip(one, two)]
+        else:
+            pairs = [(float(a.scores.sum()), float(b.scores.sum()))
+                     for a, b in zip(one, two)]
+        if any(abs(x - y) > CHAIN_ENERGY_RTOL * abs(x) for x, y in pairs):
+            raise AssertionError(f"{what}: {pairs} beyond the spread")
+        print(f"{head}; not identical (the card's reductions differ in the "
+              f"last bit between lane counts); the first step agrees within "
+              f"{FIRST_STEP_TOL} and the final energies (tiles: score sums) "
+              f"{pairs} within {CHAIN_ENERGY_RTOL:.0%}", flush=True)
+
+
+def banded_unet_phase(pos_model, image, device) -> int:
+    """Phase 17 (c): the flagship PosNet (a float32 copy, TF32 off) on
+    phase 3's scene, zero-padded to 960 x 928, in 4 row bands on one card
+    with a MESH_HALO-row halo, against its forward of the whole scene
+    zero-padded by the halo; then one kernel launch on the banded head
+    planes against the plain version on the whole scene's. Returns the
+    kernel launches (1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpp_cnn_rs_object_detection_torch.models.unet import PosNet
+    from mpp_cnn_rs_object_detection_torch.ops import (
+        detection_kernel as dk,
+    )
+    from mpp_cnn_rs_object_detection_torch.parallel.halo import (
+        sharded_unet_inference,
+    )
+
+    net = PosNet(pos_model.config["model"]["hidden_dims"]).eval()
+    net.load_state_dict(pos_model.net.state_dict())
+    net = net.to(device)
+    h, w = image.shape[:2]
+    hp, wp = -(-h // 32) * 32, -(-w // 8) * 8
+    x = torch.zeros((1, 3, hp, wp), device=device)
+    x[0, :, :h, :w] = torch.as_tensor(image, dtype=torch.float32,
+                                      device=device).permute(2, 0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        banded = sharded_unet_inference(net, x, [device] * 4,
+                                        halo=MESH_HALO)
+        torch.cuda.synchronize()
+        t_banded = time.perf_counter() - t0
+        whole = net(F.pad(x, (0, 0, MESH_HALO, MESH_HALO)))[
+            ..., MESH_HALO:-MESH_HALO, :]
+    excess = float(((banded - whole).abs() - UNET_ATOL
+                    - UNET_RTOL * whole.abs()).max())
+    err = float((banded - whole).abs().max())
+    if excess > 0:
+        raise AssertionError(f"banded PosNet off by {err} (beyond rtol "
+                             f"{UNET_RTOL}, atol {UNET_ATOL})")
+    epi = pos_model._epilogue()
+    dk.KERNEL.launches = 0
+    got = dk.detection_map_tta(
+        [dk.View(banded[0].contiguous(), (h, w), (0, False))], (h, w),
+        mask_is_logit=True, **epi)
+    torch.cuda.synchronize()
+    launches = dk.KERNEL.launches
+    want = dk.detection_map_tta_plain(
+        [dk.View(whole[0].contiguous(), (h, w), (0, False))], (h, w),
+        mask_is_logit=True, **epi)
+    map_err = float((got - want).abs().max())
+    print(f"  banded PosNet, 4 bands of {hp // 4} rows + 2 x {MESH_HALO} "
+          f"halo, {hp}x{wp} float32: {t_banded:.3f} s; max abs "
+          f"{err:.3e} from the whole scene (rtol {UNET_RTOL}, atol "
+          f"{UNET_ATOL}); kernel on the banded planes ({launches} launch) "
+          f"vs plain on the whole scene's: max abs {map_err:.3e}",
+          flush=True)
+    if launches != 1 or map_err > MESH_MAP_TOL:
+        raise AssertionError(f"banded detection map: {launches} launches, "
+                             f"off by {map_err}")
+    return launches
+
+
+def mesh_config_phase(root: str, config, device) -> None:
+    """Phase 17 (d): a copy of MESH_CONFIG (``scene_mesh: true``, legacy
+    manual mode) on the flagship's CNNs, one segment of MESH_SEG_SUPER
+    supersteps per scene: with one visible card the mesh is a no-op, and
+    ``-p infereval`` calibrates, runs each scene's exact chain and writes
+    result pickles, both overlays per scene and finite APs."""
+    from mpp_cnn_rs_object_detection_torch.mpp import mpp_model
+
+    name = f"{MESH_CONFIG}_flagship_cnns"
+    cfg_path = mpp_config_copy(root, MESH_CONFIG, name, store=False,
+                               blocks={"dataset": {
+                                   k: config["dataset"][k] for k in
+                                   ("position_model", "shape_model")}},
+                               seg_super=MESH_SEG_SUPER)
+    with open(cfg_path) as f:
+        assert json.load(f)["inference"]["scene_mesh"]
+    mesh = mpp_model.mesh_for_scene(mpp_model.load_mpp_config(MESH_CONFIG),
+                                    device, HEIGHT)
+    model, t_cli = run_cli(root, cfg_path, device)
+    stops = {(r.supersteps, r.stopped) for r in model.results.values()}
+    if stops != {(MESH_SEG_SUPER, True)}:
+        raise AssertionError(f"{name}: not one segment per scene: {stops}")
+    aps = check_exports(root, model, name)
+    sec = model.seconds
+    print(f"  CLI -c {name} (scene_mesh, {len(mpp_model.visible_mesh(device))}"
+          f" visible card(s), mesh {mesh}): {t_cli:.3f} s; chains "
+          f"{sec['chain']:.3f} s; export (overlays included) "
+          f"{sec['export']:.3f} s; eval {sec['eval']:.3f} s; "
+          f"{ap_line(model, aps)}", flush=True)
+
+
+def mesh_phase(root: str, config, inference, data, image, device,
+               seed: int) -> int:
+    """Phase 17: the meshes on one card. Returns the detection-map kernel
+    launches it counted (the banded PosNet's)."""
+    t0 = time.perf_counter()
+    banded_chain_phase(inference, data, device, seed)
+    t1 = time.perf_counter()
+    split_runs_phase(root, config, inference, data, device, seed)
+    t2 = time.perf_counter()
+    launches = banded_unet_phase(inference.pos_models[0], image, device)
+    t3 = time.perf_counter()
+    mesh_config_phase(root, config, device)
+    print(f"  phase 17 parts: banded chain {t1 - t0:.3f} s, tile and batch "
+          f"splits {t2 - t1:.3f} s, banded PosNet {t3 - t2:.3f} s, "
+          f"{MESH_CONFIG} CLI {time.perf_counter() - t3:.3f} s", flush=True)
+    return launches
+
+
 def unet_reference_check(pos_model, device):
     """The U-Net on the card against the CPU on a small input, in fp32."""
     import numpy as np
@@ -2425,6 +2788,11 @@ def run(args, device: str = "cuda:0") -> int:
         t0 = time.perf_counter()
         detector_phase(root, device, args.seed)
         phase("16 CLI train|infereval -m fasterrcnn|bbavec", t0)
+        t0 = time.perf_counter()
+        launches_mesh = mesh_phase(root, config, inference, data, image,
+                                   device, args.seed)
+        phase("17 meshes on one card: banded chain, tile and batch "
+              f"splits, banded PosNet, {MESH_CONFIG}", t0)
     finally:
         shutil.rmtree(root)
 
@@ -2437,14 +2805,15 @@ def run(args, device: str = "cuda:0") -> int:
     print(f"  detection-map launches by path: in memory {launches_cnn}, CLI "
           f"infereval {launches}, CLI train {launches_train}, CLI infer of "
           f"the trained PosNet {launches_cnn_train}, of the host-trained "
-          f"PosNet {launches_host_train}, check_div {launches_div}; phases "
-          f"7, 8, 10, 11, 12 and 15's chains reuse the CNN results",
-          flush=True)
+          f"PosNet {launches_host_train}, check_div {launches_div}, the "
+          f"banded PosNet {launches_mesh}; phases 7, 8, 10, 11, 12, 15 and "
+          f"17's chains reuse the CNN results", flush=True)
     kernels = [{
         "name": dk.KERNEL.name, "route": "cuda", "source": dk.KERNEL.source,
         "replaces": dk.KERNEL.replaces,
         "launches": launches_cnn + launches + launches_train
-        + launches_cnn_train + launches_host_train + launches_div,
+        + launches_cnn_train + launches_host_train + launches_div
+        + launches_mesh,
         "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
     }]

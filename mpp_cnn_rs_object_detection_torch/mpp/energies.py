@@ -159,8 +159,12 @@ def make_energy_maps(detection_map, mark_energy_maps, threshold: float,
     )
 
 
-def bilinear_weights(x, y, h: int, w: int):
-    """Continuous (x, y) -> 4 corner index pairs + weights (clamped)."""
+def bilinear_weights(x, y, h: int, w: int, row0: int = 0,
+                     n_rows: Optional[int] = None):
+    """Continuous (x, y) -> 4 corner index pairs + weights (clamped). A
+    row band of the maps whose first row is global row ``row0`` and which
+    holds ``n_rows`` rows takes the global corners shifted into it (the
+    weights are the whole map's, bit for bit)."""
     x = torch.clamp(x, 0.0, h - 1.0)
     y = torch.clamp(y, 0.0, w - 1.0)
     x0f = torch.floor(x)
@@ -171,15 +175,22 @@ def bilinear_weights(x, y, h: int, w: int):
     x1 = torch.clamp(x0 + 1, 0, h - 1)
     y0 = torch.clamp(y0f.long(), 0, w - 1)
     y1 = torch.clamp(y0 + 1, 0, w - 1)
+    if row0 or (n_rows is not None and n_rows != h):
+        last = (h if n_rows is None else n_rows) - 1
+        x0 = torch.clamp(x0 - row0, 0, last)
+        x1 = torch.clamp(x1 - row0, 0, last)
     wts = ((1 - fx) * (1 - fy), (1 - fx) * fy, fx * (1 - fy), fx * fy)
     return ((x0, y0), (x0, y1), (x1, y0), (x1, y1)), wts
 
 
-def position_lookup(position, xy, h: int, w: int, lane) -> torch.Tensor:
+def position_lookup(position, xy, h: int, w: int, lane,
+                    row0: int = 0) -> torch.Tensor:
     """Bilinear detection-energy lookup of lane b's (H, W) map (``position``
-    (B, H, W)) at its continuous centers ``xy`` (B, ..., 2); ``lane`` is
-    ``_lane_index`` for ``xy``."""
-    idx, wts = bilinear_weights(xy[..., 0], xy[..., 1], h, w)
+    (B, H, W), or a row band of it from global row ``row0``) at its
+    continuous centers ``xy`` (B, ..., 2); ``lane`` is ``_lane_index`` for
+    ``xy``."""
+    idx, wts = bilinear_weights(xy[..., 0], xy[..., 1], h, w, row0,
+                                position.shape[-2])
     out = None
     for (i, j), wt in zip(idx, wts):
         term = wt * position[lane, i, j]
@@ -188,12 +199,14 @@ def position_lookup(position, xy, h: int, w: int, lane) -> torch.Tensor:
 
 
 def mark_lookup_interp(mark_maps, xy, marks, vmin, vmax, cyclic,
-                       h: int, w: int, lane) -> torch.Tensor:
+                       h: int, w: int, lane, row0: int = 0) -> torch.Tensor:
     """Tri-linear per-mark energy lookup (bilinear in space, linear between
     adjacent bin centers, cyclic wrap for the angle) of lane b's maps
-    (``mark_maps`` (B, 3, H, W, C), ranges (B, 3)) at its points (``xy``
-    (B, ..., 2), ``marks`` (B, ..., 3)): (B, ..., 3)."""
-    idx, wts = bilinear_weights(xy[..., 0], xy[..., 1], h, w)
+    (``mark_maps`` (B, 3, H, W, C), or a row band of them from global row
+    ``row0``; ranges (B, 3)) at its points (``xy`` (B, ..., 2), ``marks``
+    (B, ..., 3)): (B, ..., 3)."""
+    idx, wts = bilinear_weights(xy[..., 0], xy[..., 1], h, w, row0,
+                                mark_maps.shape[-3])
     n_cls = mark_maps.shape[-1]
     vmin, vmax, cyclic = (lane_view(v, marks.ndim, 1)
                           for v in (vmin, vmax, cyclic))

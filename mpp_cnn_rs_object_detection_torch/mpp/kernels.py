@@ -345,13 +345,28 @@ def draw_variates(gen: torch.Generator, state: PointsState, kd: KernelData
     merge's uniform neighbour of it, and each kernel's own variates --
     pixel and classes from the data densities, window cells, uniforms and
     normals."""
+    return variates_from(draw_raw(gen, state.alive.shape, state.xy.device),
+                         state, kd)
+
+
+def draw_raw(gen: torch.Generator, lead, device):
+    """``draw_variates``' three draws for states of alive-mask shape
+    ``lead``: (uniforms (..., 23), noise (2, ...lead), normals (..., 6));
+    the lanes lead the uniforms and normals, and follow the noise's 2."""
+    return (torch.rand(tuple(lead[:-1]) + (23,), generator=gen,
+                       device=device),
+            torch.rand((2,) + tuple(lead), generator=gen, device=device),
+            torch.randn(tuple(lead[:-1]) + (6,), generator=gen,
+                        device=device))
+
+
+def variates_from(raw, state: PointsState, kd: KernelData) -> Variates:
+    """The variates of ``draw_variates`` built from its raw draws."""
+    u, noise, z = raw
     ln = _Lanes(state, kd)
     lead = state.alive.shape
     dev = state.xy.device
     n_k = kd.p_kernels.shape[-1]
-    u = torch.rand(lead[:-1] + (23,), generator=gen, device=dev)
-    noise = torch.rand((2,) + lead, generator=gen, device=dev)
-    z = torch.randn(lead[:-1] + (6,), generator=gen, device=dev)
 
     kernel = _categorical(kd.p_kernels[:, None, :].expand(
         lead[:-1] + (n_k,)), 1.0 - u[..., 0])

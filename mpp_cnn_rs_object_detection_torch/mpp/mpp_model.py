@@ -21,14 +21,19 @@ Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/mpp_model.py``:
     the chains checkpoint per segment, and every scored point of the
     final configurations is exported -- scores divided by ``max_score``,
     and the default-off polish, refine, score blend and backfill -- to
-    ``NNNN_results.pkl`` and the DOTA OBB translations (plain, and ``-SV``
-    with large vehicles difficult); ``eval()`` computes AP at each IoU
-    threshold;
-  - ``SceneInference`` runs the same models on in-memory images.
+    ``NNNN_results.pkl``, the DOTA OBB translations (plain, and ``-SV``
+    with large vehicles difficult) and the overlays ``NNNN_detection.png``
+    (score-coloured) and ``NNNN_gt.png`` (green) over the scene;
+    ``eval()`` computes AP at each IoU threshold. On a host with several
+    cards, ``scene_mesh`` (exact) runs a scene's chain in row bands over
+    up to one card per CELL rows, ``tile_mesh`` splits a tiled scene's
+    tiles over the cards (row bands in exact mode, as in the JAX package)
+    and ``batch_mesh`` a batch's scenes (``mesh_for_scene``); with one
+    card each is a no-op;
+  - ``SceneInference`` runs the same models on in-memory images, on one
+    device.
 
-Not ported: the meshes (``ROADMAP.md`` item 15), which raise
-``NotImplementedError``, and the detection/GT overlay PNGs and the energy
-attribution figure (item 16).
+Not ported: the energy attribution figure (``ROADMAP.md`` item 16).
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
     crop_image_w_maps,
     load_image_w_maps,
 )
+from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import CELL
 from mpp_cnn_rs_object_detection_torch.mpp.refine import snap_centers_to_map
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import RJMCMCParams
 from mpp_cnn_rs_object_detection_torch.mpp.scene import (
@@ -92,12 +98,17 @@ from mpp_cnn_rs_object_detection_torch.mpp.train_weights import (
     train_ordering_criterion,
 )
 from mpp_cnn_rs_object_detection_torch.ops.geometry import rect_to_poly_np
+from mpp_cnn_rs_object_detection_torch.parallel.mesh import Mesh, make_mesh
 from mpp_cnn_rs_object_detection_torch.utils.config import (
     fetch_data_paths,
     get_inference_path,
     get_model_base_path,
     resolve_model_config_path,
     startup_config,
+)
+from mpp_cnn_rs_object_detection_torch.utils.display import (
+    rectangles_over_image,
+    save_image,
 )
 from mpp_cnn_rs_object_detection_torch.utils.files import (
     load_results,
@@ -109,9 +120,9 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 MODELS_ROOT = os.path.join(REPO_ROOT, "artifacts", "models_storage")
 CONFIG_DIR = os.path.join(REPO_ROOT, "model_configs", "mpp")
 # config switches of the JAX MPPModel.infer that the port does not have,
-# with the value that leaves them off and the ROADMAP.md item that ports them
-_INFERENCE_OFF = {"scene_mesh": (False, 15), "batch_mesh": (False, 15),
-                  "tile_mesh": (False, 15)}
+# with the value that leaves them off and the ROADMAP.md item that ports
+# them (none since the meshes were ported)
+_INFERENCE_OFF: Dict[str, Tuple[object, int]] = {}
 TRAIN_MODES = ["manual", "integral_criterion", "ordering_criterion"]
 
 
@@ -258,6 +269,27 @@ def check_inference_config(config: Dict) -> None:
                 f"(ROADMAP.md item {item})")
 
 
+def visible_mesh(device: torch.device) -> Mesh:
+    """The devices a meshed config may use: every visible card for a
+    model on the card, the model's own device otherwise (one CPU)."""
+    return make_mesh() if device.type == "cuda" else (device,)
+
+
+def mesh_for_scene(config: Dict, device: torch.device,
+                   rows: int) -> Optional[Mesh]:
+    """A scene's mesh as the JAX ``MPPModel.infer`` picks it: with
+    ``tile_mesh``, or ``scene_mesh`` in exact mode, the exact mode takes
+    ``min(devices, max(1, rows // CELL))`` row bands and the tiled mode
+    every device; None where that is one device."""
+    inf = config["inference"]
+    exact = inf.get("scene_mode", "tiled") == "exact"
+    if not (inf.get("tile_mesh") or (exact and inf.get("scene_mesh"))):
+        return None
+    devs = visible_mesh(device)
+    n = min(len(devs), max(1, rows // CELL)) if exact else len(devs)
+    return devs[:n] if n > 1 else None
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -350,6 +382,25 @@ def export_detections(result: SceneResult, max_score: float,
     return {"centers": centers, "marks": marks, "params": params,
             "polygons": polys, "scores": scores,
             "scores01": scores / max_score}
+
+
+def save_overlays(results_dir: str, patch_id: int, image: np.ndarray,
+                  det: Dict[str, np.ndarray], labels: Dict) -> None:
+    """``NNNN_detection.png``: the exported detections over the image,
+    coloured by score over the scene's largest; ``NNNN_gt.png``: the GT
+    rectangles in green (the JAX ``MPPModel.infer``'s overlays)."""
+    scores = det["scores"]
+    save_image(os.path.join(results_dir, f"{patch_id:04}_detection.png"),
+               rectangles_over_image(
+                   image, det["centers"], det["params"], scores=scores,
+                   color="plasma",
+                   max_score=(max(1e-6, float(np.max(scores)))
+                              if len(scores) else 1.0)))
+    save_image(os.path.join(results_dir, f"{patch_id:04}_gt.png"),
+               rectangles_over_image(
+                   image, np.asarray(labels["centers"]).reshape(-1, 2),
+                   np.asarray(labels["parameters"]).reshape(-1, 3),
+                   color=(0, 255, 0)))
 
 
 def _cnn_checkpoint_mtime(model_name: str, kind: str) -> float:
@@ -596,22 +647,25 @@ class MPPModel(BaseModel):
         pending = [pid for pid in ids if overwrite or not os.path.exists(
             os.path.join(results_dir, f"{pid:04}_results.pkl"))]
         self.results = {}
-        batch: Dict[int, Tuple[ImageWMaps, SceneResult]] = {}
-        if (inf.get("batch_scenes") and exact and restarts == 1
-                and len(pending) > 1):
+        batch: Dict[int, Tuple[ImageWMaps, SceneResult, Tuple]] = {}
+        if (inf.get("batch_scenes") and exact and not inf.get("scene_mesh")
+                and restarts == 1 and len(pending) > 1):
             # every pending scene at one shared bucket and capacity
             t_stage = time.perf_counter()
             datas = [self._load_image(pid, subset) for pid in pending]
+            shapes = [tuple(d.shape) for d in datas]
             self.seconds["load"] += time.perf_counter() - t_stage
             t_stage = time.perf_counter()
+            mesh = visible_mesh(self.device) if inf.get("batch_mesh") \
+                else ()
             out = run_exact_scenes_batched(
                 datas, self.energy_setup, self.energy_model, params,
                 seeds=pending, device=self.device,
                 checkpoint_path=os.path.join(results_dir,
                                              "batched_chains.ck.npz"),
-                **options)
+                mesh=mesh if len(mesh) > 1 else None, **options)
             self.seconds["chain"] += time.perf_counter() - t_stage
-            batch = dict(zip(pending, zip(datas, out)))
+            batch = dict(zip(pending, zip(datas, out, shapes)))
             del datas, out
 
         ann_paths = dict(zip(ids, fetch_data_paths(
@@ -650,12 +704,15 @@ class MPPModel(BaseModel):
         export, and the host-side record in ``results``. The scene's maps
         and chain live in this call's frame only. The chain checkpoint is
         ``NNNN_chains.ck.npz`` in exact mode and ``NNNN_tiles.ck.npz`` in
-        tiled mode."""
+        tiled mode. The overlays are drawn over the scene at its own shape
+        (the exact chain pads ``data`` to its bucket in place)."""
         if loaded is None:
             t_stage = time.perf_counter()
             data = self._load_image(patch_id, subset)
+            shape = tuple(data.shape)
             self.seconds["load"] += time.perf_counter() - t_stage
             t_stage = time.perf_counter()
+            mesh = mesh_for_scene(self.config, self.device, shape[0])
             if self.config["inference"].get("scene_mode",
                                             "tiled") != "exact":
                 result = run_tiled_scene(
@@ -663,17 +720,17 @@ class MPPModel(BaseModel):
                     seed=patch_id, device=self.device,
                     checkpoint_path=os.path.join(
                         results_dir, f"{patch_id:04}_tiles.ck.npz"),
-                    **options)
+                    mesh=mesh, **options)
             else:
                 result = run_exact_scene(
                     data, self.energy_setup, self.energy_model, params,
                     seed=patch_id, device=self.device, restarts=restarts,
                     checkpoint_path=os.path.join(
                         results_dir, f"{patch_id:04}_chains.ck.npz"),
-                    **options)
+                    mesh=mesh, **options)
             self.seconds["chain"] += time.perf_counter() - t_stage
         else:
-            data, result = loaded
+            data, result, shape = loaded
         t_stage = time.perf_counter()
         inf = self.config["inference"]
         max_score = inf.get("max_score", 4.0)
@@ -701,6 +758,9 @@ class MPPModel(BaseModel):
                 },
                 f,
             )
+        save_overlays(results_dir, patch_id,
+                      _host(data.image)[:shape[0], :shape[1]], det,
+                      data.labels)
         self.results[patch_id] = dataclasses.replace(
             result, centers=det["centers"], marks=det["marks"],
             scores=det["scores"], chain=None)

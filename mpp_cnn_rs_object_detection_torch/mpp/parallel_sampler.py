@@ -28,6 +28,7 @@ statistically, not draw for draw.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -43,6 +44,9 @@ from mpp_cnn_rs_object_detection_torch.mpp.combinators import (
 from mpp_cnn_rs_object_detection_torch.mpp.energies import (
     EnergyMaps,
     EnergySpec,
+    _lane_index,
+    mark_lookup_interp,
+    position_lookup,
     unary_terms,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.kernels import (
@@ -73,11 +77,16 @@ from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
     expand_lanes,
     lane,
+    to_device,
 )
 from mpp_cnn_rs_object_detection_torch.ops.geometry import (
     convex_quad_intersection_area,
     marks_to_poly,
     rect_area,
+)
+from mpp_cnn_rs_object_detection_torch.parallel.halo import (
+    halo_exchange_rows,
+    split_rows,
 )
 
 # Active cells are CELL x CELL squares spaced 2*CELL apart, so concurrent
@@ -136,9 +145,33 @@ class _Index:
                    ar_window=torch.arange(WINDOW, device=device))
 
 
+class _Tape:
+    """A superstep's draws, made once for every row band of a banded chain
+    (``make_banded_step``): the first band draws from the lane generators
+    and records, every other band replays the records in the same order,
+    copied to its device. No band has a random stream of its own."""
+
+    def __init__(self, gens):
+        self.gens, self.drawn, self.at = gens, [], None
+
+    def replay(self) -> None:
+        self.at = 0
+
+    def draw(self, fn, shape, device, kw) -> torch.Tensor:
+        if self.at is None:
+            out = _draw(self.gens, fn, *shape, device=device, **kw)
+            self.drawn.append(out)
+            return out
+        self.at += 1
+        return self.drawn[self.at - 1].to(device)
+
+
 def _draw(gens, fn, *shape, device, **kw) -> torch.Tensor:
     """Lane b's numbers from lane b's generator, stacked: (B, *shape). Each
-    lane draws what a one-lane chain with its generator draws."""
+    lane draws what a one-lane chain with its generator draws; ``gens`` may
+    be a ``_Tape`` of them."""
+    if isinstance(gens, _Tape):
+        return gens.draw(fn, shape, device, kw)
     if len(gens) == 1:
         return fn(*shape, generator=gens[0], device=device, **kw)[None]
     return torch.stack([fn(*shape, generator=g, device=device, **kw)
@@ -640,10 +673,20 @@ def _cell_proposal_switched(gens, types, state: PointsState, kd: KernelData,
     return (kind,) + tuple(out[1:]) + (None, None, None)
 
 
-def _unary_at(maps: EnergyMaps, spec: EnergySpec, xy, marks):
+def _unary_at(maps: EnergyMaps, spec: EnergySpec, xy, marks,
+              view: Optional[MapView] = None, hw=None):
     """Unary data columns (position (...,), marks (..., 3)) at candidates;
-    for a CNN-free term (its energy, zeros)."""
-    return unary_terms(maps, spec, xy, marks)
+    for a CNN-free term (its energy, zeros). With a row band's ``view``
+    (CNN term only) the gathers read its blocks at the global (H, W) =
+    ``hw``; ``maps`` gives the mark ranges."""
+    if view is None:
+        return unary_terms(maps, spec, xy, marks)
+    h, w = hw
+    lanes = _lane_index(xy.shape[0], xy.ndim - 1, xy.device)
+    return (position_lookup(view.position, xy, h, w, lanes, view.row0_md),
+            mark_lookup_interp(view.mark_maps, xy, marks, maps.map_vmin,
+                               maps.map_vmax, maps.map_cyclic, h, w, lanes,
+                               view.row0_md))
 
 
 def _tops(values, mask, sign: float, n: int):
@@ -669,7 +712,8 @@ def _column(mask: torch.Tensor, at: torch.Tensor) -> torch.Tensor:
 
 def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
                      spec: EnergySpec, comb: EnergyCombiner, kinds, slots,
-                     xys, markss, slots2=None, xys2=None, markss2=None):
+                     xys, markss, slots2=None, xys2=None, markss2=None,
+                     view: Optional[MapView] = None, hw=None):
     """Exact dU of m single-slot proposals per lane (birth 1 / death 2 /
     move 3; each (B, m, ...)) against the SAME base state of their lane
     (B, K), in O(m*K): per-row top-2 statistics of the masked overlap/align
@@ -680,10 +724,11 @@ def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
     With ``slots2`` (the split/merge pair: split 4 moves ``slot`` and
     births ``slot2``, merge 5 moves ``slot`` and kills ``slot2``) the
     two-slot form of ``_two_slot_deltas`` runs instead, and the unary terms
-    are ``(pos, mark, pos2, mark2)``."""
+    are ``(pos, mark, pos2, mark2)``. A row band reads the candidates'
+    unary terms through its ``view`` (``_unary_at``)."""
     if slots2 is not None:
         return _two_slot_deltas(state, cache, maps, spec, comb, kinds, slots,
-                                xys, markss, slots2, xys2, markss2)
+                                xys, markss, slots2, xys2, markss2, view, hw)
     k = state.capacity
     dev = state.xy.device
     alive = state.alive
@@ -747,7 +792,7 @@ def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
         al_new.any(dim=-1),
         al_sign * torch.where(al_new, al_sign * al_row,
                               -torch.inf).amax(dim=-1), 0.0)
-    pos_s, mark_s = _unary_at(maps, spec, xys, markss)
+    pos_s, mark_s = _unary_at(maps, spec, xys, markss, view, hw)
     vec_s = vec_cols(spec, maps, pos_s, mark_s, ov_s, al_s, area_s,
                      markss[..., 1])
     pp_s_new = torch.where(alive_s_new, combine(comb, vec_s), 0.0)
@@ -760,7 +805,8 @@ def superstep_deltas(state: PointsState, cache: EnergyCache, maps: EnergyMaps,
 def _two_slot_deltas(state: PointsState, cache: EnergyCache,
                      maps: EnergyMaps, spec: EnergySpec,
                      comb: EnergyCombiner, kinds, slots, xys, markss,
-                     slots2, xys2, markss2):
+                     slots2, xys2, markss2, view: Optional[MapView] = None,
+                     hw=None):
     """Exact dU of proposals touching up to two slots, in O(m*K): removing
     up to two columns of a neighbour's masked row falls through its top-3
     statistics, then both candidates' fresh values are inserted, and the
@@ -798,7 +844,7 @@ def _two_slot_deltas(state: PointsState, cache: EnergyCache,
     area_c = rect_area(mk_c[..., 0], mk_c[..., 1])
     rows_c = pair_rows(xy_c, mk_c, poly_c, area_c, state, cache.polys,
                        cache.areas, spec)
-    unary_c = _unary_at(maps, spec, xy_c, mk_c)
+    unary_c = _unary_at(maps, spec, xy_c, mk_c, view, hw)
     poly_a, poly_b = poly_c[:, :m], poly_c[:, m:]
     area_s, area_s2 = area_c[:, :m], area_c[:, m:]
     dist_s, ovr_s, alr_s = (r[:, :m] for r in rows_c)
@@ -979,6 +1025,127 @@ def _apply_batch(state: PointsState, cache: EnergyCache, spec: EnergySpec,
                                polys=polys, areas=areas)
 
 
+@dataclass
+class _Grid:
+    """A chain's superstep constants on one device: the scene's (H, W),
+    the unjittered cell origins, the index tensors and the switched move
+    types' law."""
+
+    h: int
+    w: int
+    grid_y: torch.Tensor  # (m,)
+    grid_x: torch.Tensor
+    ix: _Index
+    type_p: torch.Tensor
+
+    @classmethod
+    def make(cls, h: int, w: int, n_cells: int, n_lanes: int,
+             data_moves: bool, device) -> "_Grid":
+        ids = torch.arange(n_cells, device=device)
+        grid_y = (2 * CELL * ids[:, None].expand(n_cells, n_cells)).reshape(-1)
+        grid_x = (2 * CELL * ids[None, :].expand(n_cells, n_cells)).reshape(-1)
+        return cls(h=h, w=w, grid_y=grid_y, grid_x=grid_x,
+                   ix=_Index.make(n_lanes, grid_y.shape[0], device),
+                   type_p=torch.from_numpy(_type_probs(data_moves)))
+
+    @property
+    def m(self) -> int:
+        return self.grid_y.shape[0]
+
+    def draw_types(self, type_gens):
+        """One switched move type per lane, from its CPU generator."""
+        assert type_gens is not None, "move_switch needs type_gens"
+        return [int(torch.multinomial(self.type_p, 1, generator=g))
+                for g in type_gens]
+
+
+@dataclass
+class _Records:
+    """A superstep's per-cell records, (B, m, ...): what the apply needs.
+    The split/merge pair's second slot fields are None without it."""
+
+    kinds: torch.Tensor
+    slots: torch.Tensor
+    xys: torch.Tensor
+    markss: torch.Tensor
+    deltas: torch.Tensor
+    accept: torch.Tensor
+    pos_us: torch.Tensor
+    mark_us: torch.Tensor
+    slots2: Optional[torch.Tensor] = None
+    xys2: Optional[torch.Tensor] = None
+    markss2: Optional[torch.Tensor] = None
+    pos_us2: Optional[torch.Tensor] = None
+    mark_us2: Optional[torch.Tensor] = None
+
+    def stats(self):
+        """Per lane: accepted, proposed, and the accepted kinds (B, m)."""
+        return (self.accept.sum(dim=-1), (self.kinds != 0).sum(dim=-1),
+                torch.where(self.accept, self.kinds, 0))
+
+
+def _propose(gens, types, state: PointsState, cache: EnergyCache, temp,
+             maps: EnergyMaps, spec: EnergySpec, comb: EnergyCombiner,
+             kd: KernelData, view: MapView, grid: _Grid, data_moves: bool,
+             split_merge: bool, band=None):
+    """A superstep's proposals in every lane and cell, their exact dU and
+    unary terms, and the Metropolis-Hastings-Green test, all against
+    ``state``. ``types``: the switched superstep's lane types, or None.
+    With ``band = (i, band_h)``, ``view`` is row band i's and the records
+    of cells whose clipped midpoint row lies outside the band are not to be
+    trusted (their map reads fall outside its halo): returns the records
+    and the band's (B, m) owned mask (None without a band)."""
+    dev = state.xy.device
+    h, w, ix = grid.h, grid.w, grid.ix
+    off = _randint(gens, -CELL, CELL, 2, device=dev)  # (B, 2)
+    y0s = off[:, :1] + grid.grid_y
+    x0s = off[:, 1:] + grid.grid_x
+
+    # distinct free slots for births: the r-th cell gets the r-th dead
+    # slot of its lane (a stable sort puts dead slots first, in order)
+    cells = ix.cell[0]
+    _, order = torch.sort(state.alive.to(torch.int8), dim=-1, stable=True)
+    n_dead = (~state.alive).sum(dim=-1, keepdim=True)
+    free_oks = cells < n_dead
+    free_slots = torch.where(
+        free_oks, order[:, torch.clamp(cells, max=state.capacity - 1)], 0)
+
+    if types is not None:
+        prop = _cell_proposal_switched(gens, types, state, kd, view, ix, h,
+                                       w, y0s, x0s, free_slots, free_oks)
+    else:
+        prop = _cell_proposal(gens, state, kd, view, ix, h, w, y0s, x0s,
+                              free_slots, free_oks, data_moves=data_moves,
+                              split_merge=split_merge)
+    kinds, slots, xys, markss, log_fwds, log_backs = prop[:6]
+    second = prop[6:] if prop[6] is not None else (None,) * 3
+    deltas, unary = superstep_deltas(
+        state, cache, maps, spec, comb, kinds, slots, xys, markss, *second,
+        view=view if band is not None else None, hw=(h, w))
+    log_alpha = -deltas / temp + log_backs - log_fwds
+    accept = ((torch.log(_rand(gens, grid.m, device=dev) + EPS) < log_alpha)
+              & (kinds != 0))
+    owned = None
+    if band is not None:
+        i, band_h = band
+        owned = (torch.clamp(y0s + CELL // 2, 0, h - 1) // band_h) == i
+        accept = accept & owned
+    return _Records(kinds, slots, xys, markss, deltas, accept, *unary[:2],
+                    second[0], second[1], second[2],
+                    *(unary[2:] or (None, None))), owned
+
+
+def _apply_records(state: PointsState, cache: EnergyCache, energy,
+                   spec: EnergySpec, r: _Records):
+    """The accepted records applied to the state, cache and energy."""
+    state, cache = _apply_batch(state, cache, spec, r.kinds, r.slots, r.xys,
+                                r.markss, r.pos_us, r.mark_us, r.accept,
+                                r.slots2, r.xys2, r.markss2, r.pos_us2,
+                                r.mark_us2)
+    energy = energy + torch.where(r.accept, r.deltas, 0.0).sum(dim=-1)
+    return state, cache, energy
+
+
 def make_parallel_step(maps: EnergyMaps, spec: EnergySpec,
                        comb: EnergyCombiner, kd: KernelData, alpha_t: float,
                        t_target: float, n_cells: int,
@@ -997,64 +1164,155 @@ def make_parallel_step(maps: EnergyMaps, spec: EnergySpec,
     from ``type_gens`` (one CPU generator per lane, see ``run_steps``) and
     builds only the drawn types' branches. With both off the superstep
     draws what it always drew."""
+    _check_cell(spec)
+    h, w = kd.log_birth_density.shape[-2:]
+    view = make_local_view(kd, maps)
+    grid = _Grid.make(h, w, n_cells, maps.position.shape[0], data_moves,
+                      maps.position.device)
+
+    def step(carry, gens, type_gens=None):
+        state, cache, energy, temp = carry
+        types = grid.draw_types(type_gens) if move_switch else None
+        r, _ = _propose(gens, types, state, cache, temp, maps, spec, comb,
+                        kd, view, grid, data_moves, split_merge)
+        state, cache, energy = _apply_records(state, cache, energy, spec, r)
+        temp = temp * alpha_t if temp > t_target else temp
+        return (state, cache, energy, temp), r.stats()
+
+    return step
+
+
+def _check_cell(spec: EnergySpec) -> None:
     assert CELL >= max(spec.overlap_max_dist, spec.align_max_dist), (
         f"CELL={CELL} < interaction radius "
         f"{max(spec.overlap_max_dist, spec.align_max_dist)}: concurrent cell "
         "proposals would interact"
     )
+
+
+def _merge_bands(recs, owned, home) -> _Records:
+    """The bands' records combined on the ``home`` device by a masked sum
+    (JAX's ``psum``): every cell has exactly one owner, whose record the
+    sum keeps against the others' zeros. The second slot is -1 for the
+    one-slot kinds, so it is merged shifted by one."""
+    def merge(name, shift=0):
+        total = None
+        for r, own in zip(recs, owned):
+            x = getattr(r, name)
+            if x.dtype == torch.bool:
+                x = x.long()
+            if shift:
+                x = x + shift
+            mask = own.reshape(own.shape + (1,) * (x.ndim - own.ndim))
+            y = torch.where(mask, x, 0).to(home)
+            total = y if total is None else total + y
+        return total - shift if shift else total
+
+    out = {f: merge(f) for f in ("kinds", "slots", "xys", "markss",
+                                 "deltas", "pos_us", "mark_us")}
+    out["accept"] = merge("accept").bool()
+    if recs[0].slots2 is not None:
+        out["slots2"] = merge("slots2", shift=1)
+        out.update({f: merge(f) for f in ("xys2", "markss2", "pos_us2",
+                                          "mark_us2")})
+    return _Records(**out)
+
+
+@dataclass
+class _Band:
+    """Row band ``index`` of a banded chain: its device, the maps' and the
+    kernel data's per-lane scalars, the combiner there, its view of the
+    maps (its rows and a CELL-row halo) and its superstep constants."""
+
+    index: int
+    device: torch.device
+    maps: EnergyMaps
+    kd: KernelData
+    comb: EnergyCombiner
+    view: MapView
+    grid: _Grid
+
+
+def _scalars_only(maps: EnergyMaps, kd: KernelData):
+    """The maps and the kernel data with their map-sized fields stubbed
+    (1 px): a band reads the maps through its view only."""
+    c = maps.mark_maps.shape[-1]
+    b = maps.position.shape[0]
+    z = torch.zeros((), device=maps.position.device)
+    maps_s = dataclasses.replace(
+        maps, position=z.expand(b, 1, 1), mark_maps=z.expand(b, 3, 1, 1, c),
+        image=z.expand(1, 1, 3))
+    kd_s = dataclasses.replace(
+        kd, birth_cdf=z.expand(b, 1), log_birth_density=z.expand(b, 1, 1),
+        mark_dists=z.expand(b, 3, 1, 1, c), padded_density=z.expand(b, 1, 1))
+    return maps_s, kd_s
+
+
+def make_banded_step(maps: EnergyMaps, spec: EnergySpec,
+                     comb: EnergyCombiner, kd: KernelData, alpha_t: float,
+                     t_target: float, n_cells: int, mesh,
+                     data_moves: bool = True, move_switch: bool = False,
+                     split_merge: bool = False):
+    """The superstep of ``make_parallel_step`` over the row bands of a
+    mesh (JAX's ``shard_map`` chain, ``tpu/mpp/parallel_sampler.py``):
+    band i of ``len(mesh)`` holds rows [i h/n, (i+1) h/n) of the position
+    and mark maps, the detection density and the mark distributions, with
+    a CELL-row halo from its neighbours, on ``mesh[i]``. Every band keeps
+    a replica of the state, the cache and the energy, and evaluates the
+    whole cell grid against them with the superstep's variates, drawn once
+    from the lanes' generators on the first band's device and copied to
+    the others; a band trusts only the cells it owns (clipped midpoint row
+    in its band). The records are merged by a masked sum on the first band
+    and every band applies the same accepted set: the run equals the
+    one-band chain draw for draw, pair energies across band borders
+    included. ``step((states, caches, energies, temp), gens, type_gens)``
+    takes and returns the bands' replicas as lists; its counts and kinds
+    lie on the first band's device."""
+    _check_cell(spec)
     h, w = kd.log_birth_density.shape[-2:]
-    view = make_local_view(kd, maps)
-    dev = maps.position.device
-    ids = torch.arange(n_cells, device=dev)
-    grid_y = (2 * CELL * ids[:, None].expand(n_cells, n_cells)).reshape(-1)
-    grid_x = (2 * CELL * ids[None, :].expand(n_cells, n_cells)).reshape(-1)
-    m = grid_y.shape[0]
-    ix = _Index.make(maps.position.shape[0], m, dev)
-    cells = ix.cell[0]
-    type_p = torch.from_numpy(_type_probs(data_moves))
+    n = len(mesh)
+    band_h = h // n
+
+    def bands_of(x, dim):
+        return halo_exchange_rows(split_rows(x, mesh, dim), CELL, dim)
+
+    # the density of the one-band view, its columns padded by CELL
+    density = F.pad(torch.exp(kd.log_birth_density), (CELL, CELL))
+    cds, pos = bands_of(density, 1), bands_of(maps.position, 1)
+    mms, mds = bands_of(maps.mark_maps, 2), bands_of(kd.mark_dists, 2)
+    maps_s, kd_s = _scalars_only(maps, kd)
+    bands = [
+        _Band(index=i, device=d, maps=to_device(maps_s, d),
+              kd=to_device(kd_s, d), comb=to_device(comb, d),
+              view=MapView(cell_density=cds[i], mark_dists=mds[i],
+                           position=pos[i], mark_maps=mms[i],
+                           row0_cd=i * band_h - CELL,
+                           row0_md=i * band_h - CELL),
+              grid=_Grid.make(h, w, n_cells, maps.position.shape[0],
+                              data_moves, d))
+        for i, d in enumerate(mesh)]
+    home = bands[0].device
 
     def step(carry, gens, type_gens=None):
-        state, cache, energy, temp = carry
-        off = _randint(gens, -CELL, CELL, 2, device=dev)  # (B, 2)
-        y0s = off[:, :1] + grid_y
-        x0s = off[:, 1:] + grid_x
-
-        # distinct free slots for births: the r-th cell gets the r-th dead
-        # slot of its lane (a stable sort puts dead slots first, in order)
-        _, order = torch.sort(state.alive.to(torch.int8), dim=-1,
-                              stable=True)
-        n_dead = (~state.alive).sum(dim=-1, keepdim=True)
-        free_oks = cells < n_dead
-        free_slots = torch.where(
-            free_oks, order[:, torch.clamp(cells, max=state.capacity - 1)],
-            0)
-
-        if move_switch:
-            assert type_gens is not None, "move_switch needs type_gens"
-            types = [int(torch.multinomial(type_p, 1, generator=g))
-                     for g in type_gens]
-            prop = _cell_proposal_switched(gens, types, state, kd, view, ix,
-                                           h, w, y0s, x0s, free_slots,
-                                           free_oks)
-        else:
-            prop = _cell_proposal(gens, state, kd, view, ix, h, w, y0s, x0s,
-                                  free_slots, free_oks, data_moves=data_moves,
-                                  split_merge=split_merge)
-        kinds, slots, xys, markss, log_fwds, log_backs = prop[:6]
-        second = prop[6:] if prop[6] is not None else (None,) * 3
-        deltas, unary = superstep_deltas(state, cache, maps, spec, comb,
-                                         kinds, slots, xys, markss, *second)
-        log_alpha = -deltas / temp + log_backs - log_fwds
-        accept = ((torch.log(_rand(gens, m, device=dev) + EPS) < log_alpha)
-                  & (kinds != 0))
-        state, cache = _apply_batch(state, cache, spec, kinds, slots, xys,
-                                    markss, *unary[:2], accept, *second,
-                                    *unary[2:])
-        energy = energy + torch.where(accept, deltas, 0.0).sum(dim=-1)
+        states, caches, energies, temp = carry
+        types = bands[0].grid.draw_types(type_gens) if move_switch else None
+        tape = _Tape(gens)
+        recs, owned = [], []
+        for b, state, cache in zip(bands, states, caches):
+            r, own = _propose(tape, types, state, cache, temp, b.maps, spec,
+                              b.comb, b.kd, b.view, b.grid, data_moves,
+                              split_merge, band=(b.index, band_h))
+            tape.replay()
+            recs.append(r)
+            owned.append(own)
+        merged = _merge_bands(recs, owned, home)
+        out = [_apply_records(state, cache, energy, spec,
+                              to_device(merged, b.device))
+               for b, state, cache, energy in zip(bands, states, caches,
+                                                  energies)]
         temp = temp * alpha_t if temp > t_target else temp
-        return (state, cache, energy, temp), (accept.sum(dim=-1),
-                                              (kinds != 0).sum(dim=-1),
-                                              torch.where(accept, kinds, 0))
+        return ([o[0] for o in out], [o[1] for o in out],
+                [o[2] for o in out], temp), merged.stats()
 
     return step
 
@@ -1075,8 +1333,8 @@ def run_steps(step, state: PointsState, cache: EnergyCache,
     carry = (state, cache, energy, temp)
     type_gens = [torch.Generator().manual_seed(g.initial_seed())
                  for g in gens]
-    acc = prop = torch.zeros(energy.shape, dtype=torch.long,
-                             device=energy.device)
+    acc = prop = torch.zeros(len(gens), dtype=torch.long,
+                             device=gens[0].device)
     for _ in range(n_supersteps):
         carry, (a, p, kinds) = step(carry, gens, type_gens)
         acc, prop = acc + a, prop + p

@@ -14,7 +14,7 @@ int slot, and ``papangelou`` takes one configuration.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +35,16 @@ from mpp_cnn_rs_object_detection_torch.mpp.kernels import (
     Variates,
     apply_proposal,
     build_proposal,
-    draw_variates,
+    draw_raw,
+    variates_from,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
+    cat_lanes,
     expand_lanes,
     lane,
+    lanes,
+    to_device,
 )
 from mpp_cnn_rs_object_detection_torch.ops.geometry import (
     marks_to_poly,
@@ -305,20 +309,38 @@ def step_from_variates(carry, v: Variates, u: torch.Tensor,
             torch.where(accept, new_energy, energy)), accept
 
 
+def draw_step(gen: torch.Generator, n_lanes: int, capacity: int, device):
+    """The raw numbers of one sequential step of ``n_lanes`` lanes, in the
+    order the step draws them: ``kernels.draw_raw``'s three draws and the
+    accept uniforms (B,)."""
+    return draw_raw(gen, (n_lanes, 1, capacity), device) + (
+        torch.rand((n_lanes,), generator=gen, device=device),)
+
+
+def raw_lanes(raw, at: slice, device):
+    """Lanes ``at`` of ``draw_step``'s numbers, on ``device``."""
+    u, noise, z, u_acc = raw
+    return (u[at].to(device), noise[:, at].to(device), z[at].to(device),
+            u_acc[at].to(device))
+
+
 def make_step_fn(maps: EnergyMaps, spec: EnergySpec, comb: EnergyCombiner,
                  kd: KernelData, alpha_t: float, t_target: float):
     """One annealed step of B lanes: ``step((state, cache, energy, temp),
     gen)`` draws every lane's variates and accept uniform from ``gen``
-    (four calls, shaped over the lanes) and applies
-    ``step_from_variates``. Returns the new carry and the (B,) accepts
-    and kernel indices (device tensors); the temperature is one host
-    float for all lanes."""
-    def step(carry, gen: torch.Generator):
+    (four calls, shaped over the lanes; or takes them drawn, ``raw`` of
+    ``draw_step``) and applies ``step_from_variates``. Returns the new
+    carry and the (B,) accepts and kernel indices (device tensors); the
+    temperature is one host float for all lanes."""
+    def step(carry, gen: Optional[torch.Generator], raw=None):
         state, _, energy, temp = carry
-        v = draw_variates(gen, PointsState(
+        if raw is None:
+            raw = draw_step(gen, state.xy.shape[0], state.capacity,
+                            energy.device)
+        v = variates_from(raw[:3], PointsState(
             xy=state.xy[:, None], marks=state.marks[:, None],
             alive=state.alive[:, None]), kd)
-        u = torch.rand(energy.shape, generator=gen, device=energy.device)
+        u = raw[3]
         (state, cache, energy), accept = step_from_variates(
             carry, v, u, maps, spec, comb, kd)
         temp = temp * alpha_t if temp > t_target else temp
@@ -327,12 +349,23 @@ def make_step_fn(maps: EnergyMaps, spec: EnergySpec, comb: EnergyCombiner,
     return step
 
 
+def lane_groups(n_lanes: int, mesh, device) -> List[Tuple[slice, object]]:
+    """Contiguous groups of the lanes, one per device of ``mesh`` (as even
+    as they divide; a device with none is left out), or all lanes on
+    ``device`` without a mesh."""
+    if mesh is None or len(mesh) < 2:
+        return [(slice(0, n_lanes), device)]
+    groups = np.array_split(np.arange(n_lanes), len(mesh))
+    return [(slice(int(g[0]), int(g[-1]) + 1), d)
+            for g, d in zip(groups, mesh) if len(g)]
+
+
 def run_chain(gen: torch.Generator, init_state: PointsState,
               maps: EnergyMaps, spec: EnergySpec, comb: EnergyCombiner,
               kd: KernelData, n_steps: int, t0: float = 1.0,
               alpha_t: float = 0.999, t_target: float = 0.0,
               n_samples: int = 0, samples_interval: int = 1,
-              burn_in: int = 0, step_offset: int = 0):
+              burn_in: int = 0, step_offset: int = 0, mesh=None):
     """``n_steps`` annealed steps of B lanes (laned state, maps and kernel
     data; every draw from ``gen``, shaped over the lanes).
 
@@ -343,39 +376,62 @@ def run_chain(gen: torch.Generator, init_state: PointsState,
     read. Returns ``(state, stats)``, or ``(state, stats, samples,
     n_collected)`` with ``samples`` laned (B, n_samples, K, ...), oldest
     first (the valid ones at the end), and ``n_collected`` the host count
-    of sampling steps in this call, the same for every lane."""
-    step = make_step_fn(maps, spec, comb, kd, alpha_t, t_target)
-    cache = build_cache(init_state, maps, spec)
-    energy = energy_from_cache(init_state, maps, spec, comb, cache)
-    n_lanes, n_k = energy.shape[0], kd.p_kernels.shape[-1]
-    dev = energy.device
-    accepted = torch.zeros((n_lanes, n_k), device=dev)
-    proposed = torch.zeros((n_lanes, n_k), device=dev)
-    ones = torch.ones((n_lanes, 1), device=dev)
-    buf = None
+    of sampling steps in this call, the same for every lane.
+
+    ``mesh``: the lanes run in contiguous groups, one per device
+    (``lane_groups``); each step's numbers are drawn once for all lanes on
+    the inputs' device and each group takes its rows, so the run equals
+    the unsplit one. The results come back to the inputs' device."""
+    n_lanes, n_k = init_state.xy.shape[0], kd.p_kernels.shape[-1]
+    home = init_state.xy.device
+    parts = lane_groups(n_lanes, mesh, home)
+    steps, carries = [], []
+    for at, dev in parts:
+        maps_p, kd_p, state_p = (to_device(lanes(x, at), dev)
+                                 for x in (maps, kd, init_state))
+        comb_p = to_device(comb, dev)
+        steps.append(make_step_fn(maps_p, spec, comb_p, kd_p, alpha_t,
+                                  t_target))
+        cache = build_cache(state_p, maps_p, spec)
+        carries.append((state_p, cache, energy_from_cache(
+            state_p, maps_p, spec, comb_p, cache), float(t0)))
+    accepted = torch.zeros((n_lanes, n_k), device=home)
+    proposed = torch.zeros((n_lanes, n_k), device=home)
+    ones = torch.ones((n_lanes, 1), device=home)
+    bufs = None
     if n_samples > 0:
-        buf = type(init_state)(**{
-            f: torch.zeros((n_lanes, n_samples) + getattr(
+        bufs = [type(init_state)(**{
+            f: torch.zeros((c[0].xy.shape[0], n_samples) + getattr(
                 init_state, f).shape[1:], dtype=getattr(init_state, f).dtype,
                 device=dev) for f in init_state.__dataclass_fields__})
+            for c, (_, dev) in zip(carries, parts)]
     n_coll = 0
-    carry = (init_state, cache, energy, float(t0))
     for i in range(n_steps):
-        carry, (acc, kernel) = step(carry, gen)
-        accepted.scatter_add_(1, kernel[:, None], acc[:, None].float())
-        proposed.scatter_add_(1, kernel[:, None], ones)
+        raw = (draw_step(gen, n_lanes, init_state.capacity, home)
+               if len(parts) > 1 else None)
+        for j, (at, dev) in enumerate(parts):
+            carries[j], (acc, kernel) = steps[j](
+                carries[j], gen, None if raw is None else raw_lanes(raw, at,
+                                                                    dev))
+            kernel = kernel.to(home)
+            accepted[at].scatter_add_(1, kernel[:, None],
+                                      acc[:, None].float().to(home))
+            proposed[at].scatter_add_(1, kernel[:, None], ones[at])
         g = step_offset + i
-        if buf is not None and g >= burn_in and g % samples_interval == 0:
+        if bufs is not None and g >= burn_in and g % samples_interval == 0:
             pos = n_coll % n_samples
-            for f in buf.__dataclass_fields__:
-                getattr(buf, f)[:, pos] = getattr(carry[0], f)
+            for buf, carry in zip(bufs, carries):
+                for f in buf.__dataclass_fields__:
+                    getattr(buf, f)[:, pos] = getattr(carry[0], f)
             n_coll += 1
-    state, _, energy, temp = carry
+    state = cat_lanes([c[0] for c in carries], home)
+    energy = cat_lanes([c[2] for c in carries], home)
     stats = ChainStats(accepted=accepted, proposed=proposed,
                        final_energy=energy, final_n_points=state.n_points,
-                       final_temperature=temp)
-    if buf is None:
+                       final_temperature=carries[0][3])
+    if bufs is None:
         return state, stats
+    buf = cat_lanes(bufs, home)
     shift = -(n_coll % n_samples)
     samples = type(buf)(**{f: torch.roll(getattr(buf, f), shift, dims=1)
                            for f in buf.__dataclass_fields__})

@@ -1,4 +1,4 @@
-"""Scene-level MPP inference on one device: exact and tiled.
+"""Scene-level MPP inference, exact and tiled, on one device or a mesh.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/scene.py``.
 
@@ -16,11 +16,21 @@ launch sequence per superstep serves them all.
 Tiled mode (``run_tiled_scene``, the JAX package's default): overlapping
 tiles of the scene run as the lanes of one sequential (or cell-parallel)
 chain, their detections merged with a 3 px dedup and rescored on the
-scene's maps. The meshes are not ported.
+scene's maps.
+
+The meshes (``parallel/mesh.py``): ``run_exact_scene`` with a mesh of n >
+1 devices runs its one chain in n row bands (``parallel/
+sharded_scene.py``), at a bucket whose rows split into n bands of at least
+2 CELL; ``run_exact_scenes_batched`` splits its scenes into groups of
+lanes over the largest divisor of B that the mesh holds, and
+``run_tiled_scene`` its tiles into one group per device. Each gives the
+results of its run without the mesh: a band or a group draws what the
+whole chain draws for its lanes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -43,23 +53,29 @@ from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
     merge_patch_results,
     split_image,
 )
+from mpp_cnn_rs_object_detection_torch.mpp.kernels import KernelData
 from mpp_cnn_rs_object_detection_torch.mpp.parallel_sampler import CELL
 from mpp_cnn_rs_object_detection_torch.mpp.polish import polish_state
 from mpp_cnn_rs_object_detection_torch.mpp.rjmcmc import (
+    ChainStats,
     EnergyCache,
     RJMCMCParams,
     build_cache,
     energy_from_cache,
+    lane_groups,
     papangelou,
     run_chain,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.state import (
     PointsState,
+    cat_lanes,
     expand_lanes,
     lane,
+    lanes,
     stack_lanes,
     state_from_arrays,
     state_to_arrays,
+    to_device,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
     SegmentSummary,
@@ -258,24 +274,64 @@ class _Anneal:
     by_kind: Optional[torch.Tensor] = None  # (B, 6) accepted by kind
 
 
-def _anneal(state: PointsState, maps: EnergyMaps, kd, setup: EnergySetup,
-            comb: EnergyCombiner, budget: SuperstepBudget,
+@dataclass
+class _Part:
+    """Lanes ``lanes`` of an exact chain on ``device``, with their maps and
+    kernel data there; ``bands``: the mesh its one lane runs in by rows."""
+
+    lanes: slice
+    device: torch.device
+    maps: EnergyMaps
+    kd: KernelData
+    comb: EnergyCombiner
+    bands: Optional[Tuple[torch.device, ...]] = None
+
+
+def _parts(maps: EnergyMaps, kd: KernelData, comb: EnergyCombiner,
+           n_lanes: int, device: torch.device, mesh, banded: bool
+           ) -> List[_Part]:
+    """The chain's lanes as one part, its one lane in row bands over
+    ``mesh`` (``banded``), or contiguous lane groups, one per device."""
+    if banded:
+        return [_Part(slice(0, n_lanes), device, maps, kd, comb,
+                      tuple(mesh))]
+    return [_Part(at, dev, *(to_device(lanes(x, at), dev)
+                             for x in (maps, kd)), to_device(comb, dev))
+            for at, dev in lane_groups(n_lanes, mesh, device)]
+
+
+def _cat_stats(stats: List[ChainStats], device) -> ChainStats:
+    """The parts' segment stats as one laned record on ``device``."""
+    if len(stats) == 1:
+        return stats[0]
+    return dataclasses.replace(stats[0], **{
+        f: cat_lanes([getattr(s, f) for s in stats], device)
+        for f in ("accepted", "proposed", "final_energy", "final_n_points",
+                  "accepted_by_kind")})
+
+
+def _anneal(state: PointsState, parts: List[_Part], setup: EnergySetup,
+            budget: SuperstepBudget,
             lane_seeds: Sequence[Tuple[int, int]], done: int, t0: float,
             moves: Dict[str, bool], device: torch.device,
             stopping: Optional[StoppingCondition],
             max_segments: Optional[int],
             on_segment: Optional[Callable[[PointsState, int, float], None]],
             name: str) -> _Anneal:
-    """Segments of the laned chain from superstep ``done``: lane b's
-    generator is reseeded per segment from ``lane_seeds[b]`` = (seed,
-    restart lane); ``moves`` holds the superstep's ``data_moves``,
-    ``move_switch`` and ``split_merge``. ``stopping`` is evaluated once
-    per segment, jointly over the lanes (``stopping.batch_summary``), so
-    every lane stops at the same superstep; ``on_segment(state, done,
-    t0)`` follows every segment after which the anneal goes on (the
-    checkpoint writer)."""
-    gens = [torch.Generator(device=device) for _ in lane_seeds]
-    cache = energy = by_kind = None
+    """Segments of the laned chain from superstep ``done``, part by part
+    (``_parts``): lane b's generator, on its part's device, is reseeded
+    per segment from ``lane_seeds[b]`` = (seed, restart lane); ``moves``
+    holds the superstep's ``data_moves``, ``move_switch`` and
+    ``split_merge``. ``stopping`` is evaluated once per segment, jointly
+    over all lanes (``stopping.batch_summary``), so every lane stops at
+    the same superstep; ``on_segment(state, done, t0)`` follows every
+    segment after which the anneal goes on (the checkpoint writer). The
+    results are laned on ``device``."""
+    gens = [[torch.Generator(device=p.device)
+             for _ in lane_seeds[p.lanes]] for p in parts]
+    states = [to_device(lanes(state, p.lanes), p.device) for p in parts]
+    caches = [None] * len(parts)
+    energy = by_kind = None
     stopped = False
     segments = 0
     summaries: List[SegmentSummary] = []
@@ -284,12 +340,17 @@ def _anneal(state: PointsState, maps: EnergyMaps, kd, setup: EnergySetup,
             break
         t_seg = time.perf_counter()
         n = min(budget.seg_super, budget.total_super - done)
-        for g, (seed, r) in zip(gens, lane_seeds):
-            g.manual_seed(segment_seed(seed, done, r))
-        state, cache, stats = run_exact_scene_chain(
-            gens, state, maps, setup.spec, comb, kd, n_supersteps=n, t0=t0,
-            alpha_t=budget.alpha_super, t_target=budget.t_target,
-            cache=cache, **moves)
+        seg_stats = []
+        for i, p in enumerate(parts):
+            for g, (seed, r) in zip(gens[i], lane_seeds[p.lanes]):
+                g.manual_seed(segment_seed(seed, done, r))
+            states[i], caches[i], st = run_exact_scene_chain(
+                gens[i], states[i], p.maps, setup.spec, p.comb, p.kd,
+                n_supersteps=n, t0=t0, alpha_t=budget.alpha_super,
+                t_target=budget.t_target, cache=caches[i], mesh=p.bands,
+                **moves)
+            seg_stats.append(st)
+        stats = _cat_stats(seg_stats, device)
         energy = stats.final_energy
         by_kind = (stats.accepted_by_kind if by_kind is None
                    else by_kind + stats.accepted_by_kind)
@@ -313,9 +374,11 @@ def _anneal(state: PointsState, maps: EnergyMaps, kd, setup: EnergySetup,
                     f"acc={s.accept_rate:.4f} T={t0:.4g})")
         if on_segment is not None and done < budget.total_super \
                 and not stopped:
-            on_segment(state, done, t0)
-    return _Anneal(state=state, cache=cache, energy=energy, done=done, t0=t0,
-                   stopped=stopped, by_kind=by_kind)
+            on_segment(cat_lanes(states, device), done, t0)
+    cache = (None if caches[0] is None else cat_lanes(caches, device))
+    return _Anneal(state=cat_lanes(states, device), cache=cache,
+                   energy=energy, done=done, t0=t0, stopped=stopped,
+                   by_kind=by_kind)
 
 
 def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
@@ -324,7 +387,8 @@ def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
                moves: Dict[str, bool], device: torch.device,
                checkpoint_path: Optional[str],
                stopping: Optional[StoppingCondition], polish_steps: int,
-               name: str) -> List[SceneResult]:
+               name: str, mesh=None, banded: bool = False
+               ) -> List[SceneResult]:
     """The chains of prepared scenes, one lane per (scene, restart): scene
     i's lanes are seeded ``seeds[i]``, each keeps its lane of lowest final
     energy, is polished, and is scored by papangelou. A batch of scenes
@@ -335,7 +399,7 @@ def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
     supersteps, segment, annealing, capacity, bucket, lane count and seeds)
     go to this ``.npz``; a run that finds a matching file resumes there,
     and the file is removed once the anneal has ended (budget spent or
-    stopping fired)."""
+    stopping fired). ``mesh``, ``banded``: see ``_parts``."""
     t_start = time.perf_counter()
     n_scenes = len(prepared)
     assert n_scenes == 1 or restarts == 1, "restarts run one scene at a time"
@@ -392,8 +456,9 @@ def _run_lanes(prepared, setup: EnergySetup, comb: EnergyCombiner,
     _sync(device)
     t_prep = time.perf_counter() - t_start
     t_chain = time.perf_counter()
-    run = _anneal(state, maps, kd, setup, comb, budget, lane_seeds, done, t0,
-                  moves, device, stopping, max_segments,
+    run = _anneal(state, _parts(maps, kd, comb, n_lanes, device, mesh,
+                                banded), setup, budget, lane_seeds, done,
+                  t0, moves, device, stopping, max_segments,
                   checkpoint if checkpoint_path else None, name)
     _sync(device)
     t_chain = time.perf_counter() - t_chain
@@ -465,9 +530,13 @@ def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
                     stopping: Optional[StoppingCondition] = None,
                     restarts: int = 1, polish_steps: int = 0,
                     move_switch: bool = False,
-                    split_merge: bool = False) -> SceneResult:
+                    split_merge: bool = False, mesh=None) -> SceneResult:
     """EXACT whole-scene MPP: one global cell-parallel chain over the full
-    (bucket-padded) maps, then papangelou scores.
+    (bucket-padded) maps, then papangelou scores. With a ``mesh`` of n > 1
+    devices the chain runs in n row bands on them (the scene's maps,
+    results and generator on ``mesh[0]``), at a bucket whose rows split
+    into n bands, and ``restarts`` > 1 is refused with a warning (one
+    lane), as in the JAX package.
 
     ``restarts``: N independent anneals of the scene as N lanes of one
     launch sequence (lane 0 is the one-lane chain), keeping the lane of
@@ -479,8 +548,15 @@ def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
     that many segments and scores the state reached (a bounded run;
     ``supersteps`` says how far it got)."""
     device = resolve_device(device)
+    n_dev = 1 if mesh is None else len(mesh)
+    if n_dev > 1:
+        device = torch.device(mesh[0])
+        if int(restarts) > 1:
+            logging.warning("exact scene: restarts > 1 is single-device "
+                            "only; ignoring")
+            restarts = 1
     t_start = time.perf_counter()
-    target = scene_shape_bucket(*data.shape, 1)
+    target = scene_shape_bucket(*data.shape, n_dev)
     data, c0, m0, orig = _prepare(data, setup, target, init, device)
     cap = _capacity(*data.shape, capacity, len(c0))
     prepared = [(data, c0, m0, orig, time.perf_counter() - t_start)]
@@ -489,7 +565,9 @@ def run_exact_scene(data: ImageWMaps, setup: EnergySetup,
     return _run_lanes(prepared, setup, comb, params, [seed],
                       max(1, int(restarts)), cap, segment_size, max_segments,
                       moves, device, checkpoint_path, stopping,
-                      int(polish_steps), f"scene {data.name}")[0]
+                      int(polish_steps), f"scene {data.name}",
+                      mesh=mesh if n_dev > 1 else None,
+                      banded=n_dev > 1)[0]
 
 
 def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
@@ -504,7 +582,7 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
                              stopping: Optional[StoppingCondition] = None,
                              polish_steps: int = 0,
                              move_switch: bool = False,
-                             split_merge: bool = False,
+                             split_merge: bool = False, mesh=None,
                              ) -> List[SceneResult]:
     """Exact scenes over a batch sharing ONE bucket and ONE capacity, as
     one program: the B scenes are the lanes of one launch sequence per
@@ -520,9 +598,21 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
     every segment, with a fingerprint led by ``CHECKPOINT_FORMAT``; the
     JAX package's file of the same name has no format tag and another
     length, so each package restarts on the other's file. ``polish_steps``
-    polishes each scene's final configuration before scoring."""
+    polishes each scene's final configuration before scoring.
+
+    ``mesh``: the B scenes run in ``n_use`` groups of consecutive lanes,
+    group g on ``mesh[g]``, where ``n_use`` is the largest divisor of B
+    that is at most the mesh's size (JAX's batch sharding); the scenes'
+    maps and results stay on ``device``."""
     assert len(datas) > 0
     device = resolve_device(device)
+    if mesh is not None:
+        n_use = max(d for d in range(1, min(len(mesh), len(datas)) + 1)
+                    if len(datas) % d == 0)
+        mesh = tuple(mesh[:n_use]) if n_use > 1 else None
+        if mesh is not None:
+            logging.info(f"batched scenes: {len(datas)} scenes over "
+                         f"{n_use} devices")
     target_h = max(scene_shape_bucket(*d.shape, 1)[0] for d in datas)
     target_w = max(scene_shape_bucket(*d.shape, 1)[1] for d in datas)
     prepared = []
@@ -538,7 +628,7 @@ def run_exact_scenes_batched(datas: List[ImageWMaps], setup: EnergySetup,
     return _run_lanes(prepared, setup, comb, params, seeds, 1, cap,
                       segment_size, max_segments, moves, device,
                       checkpoint_path, stopping, int(polish_steps),
-                      f"batched scenes x{len(datas)}")
+                      f"batched scenes x{len(datas)}", mesh=mesh)
 
 
 # ------------------------------------------------------------------ tiled
@@ -622,7 +712,7 @@ def run_tiled_scene(data: ImageWMaps, setup: EnergySetup,
                     max_segments: Optional[int] = None,
                     polish_steps: int = 0, data_moves: bool = True,
                     move_switch: bool = False, split_merge: bool = False,
-                    device=None) -> Optional[SceneResult]:
+                    device=None, mesh=None) -> Optional[SceneResult]:
     """TILED MPP inference (the JAX ``run_mpp_on_scene`` default): pad the
     scene to ``patch_size``, split it into overlapping tiles, run every
     tile's chain as a lane of ONE program, offset the tiles' detections
@@ -644,7 +734,14 @@ def run_tiled_scene(data: ImageWMaps, setup: EnergySetup,
     unfinished segment (``TILED_CHECKPOINT_FORMAT``), resumed when its
     fingerprint matches and removed at the end. ``max_segments``: stop
     after that many segments and return None, as a killed run would (a
-    resume then continues from the checkpoint)."""
+    resume then continues from the checkpoint).
+
+    ``mesh``: the tiles run in contiguous groups, one per device
+    (``rjmcmc.lane_groups``); each tile keeps its generator (the parallel
+    sampler's own, or its rows of the sequential chain's draws), so the
+    detections and scores are those of the unsplit run. The JAX package
+    pads its tile batch to a multiple of the mesh instead; the results
+    are the same."""
     assert sampler in SAMPLERS, sampler
     device = resolve_device(device)
     t_start = time.perf_counter()
@@ -709,22 +806,31 @@ def run_tiled_scene(data: ImageWMaps, setup: EnergySetup,
     t_prep = time.perf_counter() - t_start
     t_chain = time.perf_counter()
     gen = torch.Generator(device=device)
+    parts = (_parts(maps, kd, comb, n_tiles, device, mesh, False)
+             if sampler == "parallel" else None)
     segments = 0
     while done < total:
         n = min(seg, total - done)
         if sampler == "parallel":
-            gens = [torch.Generator(device=device).manual_seed(
-                segment_seed(seed, done, t)) for t in range(n_tiles)]
-            state, _, _ = run_exact_scene_chain(
-                gens, state, maps, spec, comb, kd, n_supersteps=n, t0=t0,
-                alpha_t=alpha_step, t_target=t_target, data_moves=data_moves,
-                move_switch=move_switch, split_merge=split_merge)
+            outs = []
+            for p in parts:
+                gens = [torch.Generator(device=p.device).manual_seed(
+                    segment_seed(seed, done, t))
+                    for t in range(n_tiles)[p.lanes]]
+                outs.append(run_exact_scene_chain(
+                    gens, to_device(lanes(state, p.lanes), p.device),
+                    p.maps, spec, p.comb, p.kd, n_supersteps=n, t0=t0,
+                    alpha_t=alpha_step, t_target=t_target,
+                    data_moves=data_moves, move_switch=move_switch,
+                    split_merge=split_merge)[0])
+            state = cat_lanes(outs, device)
         else:
             gen.manual_seed(segment_seed(seed, done))
             out = run_chain(gen, state, maps, spec, comb, kd, n_steps=n,
                             t0=t0, alpha_t=alpha, t_target=t_target,
                             n_samples=n_samp, samples_interval=interval,
-                            burn_in=params.burn_in, step_offset=done)
+                            burn_in=params.burn_in, step_offset=done,
+                            mesh=mesh)
             state = out[0]
             if n_samp > 0 and out[3] > 0:
                 samples = _keep_last_samples(samples, s_count, out[2],

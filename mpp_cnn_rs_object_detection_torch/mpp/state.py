@@ -5,7 +5,9 @@ configuration is ``(xy, marks, alive)`` of capacity K with an alive mask.
 The chain carries B configurations at once on a leading lane axis
 (``(B, K, ...)``): the scenes of a batch, or the restarts of one scene.
 ``stack_lanes``, ``expand_lanes`` and ``lane`` move any dataclass of
-tensors (states, caches, maps, kernel data) on and off that axis.
+tensors (states, caches, maps, kernel data) on and off that axis;
+``lanes``, ``cat_lanes`` and ``to_device`` split it into groups of lanes
+and move them between devices (the meshes, ``parallel/``).
 """
 
 from __future__ import annotations
@@ -97,3 +99,36 @@ def lane(item, i: int):
     """Lane ``i`` of a laned dataclass of tensors (views)."""
     return type(item)(**{f.name: getattr(item, f.name)[i]
                          for f in fields(item)})
+
+
+def lanes(item, at: slice):
+    """Lanes ``at`` of a laned dataclass of tensors (views)."""
+    return type(item)(**{f.name: getattr(item, f.name)[at]
+                         for f in fields(item)})
+
+
+def to_device(item, device):
+    """A dataclass's tensors (also those in dict fields, as a combiner's
+    parameters) on ``device``; a tensor already there is not copied."""
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        return v
+
+    return replace(item, **{f.name: move(getattr(item, f.name))
+                            for f in fields(item)})
+
+
+def cat_lanes(items, device):
+    """Laned tensors, or laned dataclasses of tensors, joined along their
+    lanes on ``device``; one item is returned as it is, moved there."""
+    if isinstance(items[0], torch.Tensor):
+        return (items[0].to(device) if len(items) == 1
+                else torch.cat([x.to(device) for x in items]))
+    if len(items) == 1:
+        return to_device(items[0], device)
+    return type(items[0])(**{f.name: torch.cat(
+        [getattr(x, f.name).to(device) for x in items])
+        for f in fields(items[0])})

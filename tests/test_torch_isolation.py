@@ -78,3 +78,26 @@ def test_no_blocked_import_anywhere_in_the_source():
                 continue
             for n in names:
                 assert n.split(".")[0] not in BLOCKED, (path, n)
+
+
+def test_mesh_and_display_modules_import_without_plotting_stack():
+    """The meshes and the overlays import, and draw, with the JAX stack,
+    OpenCV, Pillow and matplotlib blocked."""
+    script = f"""
+import sys
+for name in {BLOCKED + ("matplotlib",)!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {ROOT!r})
+import numpy as np
+from {PORT}.parallel import halo, mesh, sharded_scene
+from {PORT}.utils import display, light_display
+img = display.rectangles_over_image(np.zeros((8, 8, 3)), [[4, 4]],
+                                    [[2, 4, 0.5]])
+assert img.shape == (8, 8, 3) and img.any()
+assert mesh.make_mesh(devices=["cpu"] * 2) == mesh.make_mesh(2, ["cpu"] * 3)
+print("OK")
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0 and out.stdout.split()[-1] == "OK", (
+        out.stdout + out.stderr)

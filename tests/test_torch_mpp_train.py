@@ -12,8 +12,9 @@ AP within the stated band through one chain. With the same perturbed
 configurations given to both trainers (the draws are threefry in one
 package and Philox in the other), the trained weights agree.
 The legacy manual mode (a copy of ``mpp_exact_smoke`` on the same maps)
-calibrates, builds ``hierarchical_fixed`` and runs infereval. Last, what
-still raises ``NotImplementedError``, with its ``ROADMAP.md`` item."""
+calibrates, builds ``hierarchical_fixed`` and runs infereval. Last, the
+options that raised ``NotImplementedError`` with their ``ROADMAP.md``
+item, accepted since their item was ported."""
 
 import glob
 import json
@@ -241,8 +242,9 @@ def test_manual_legacy_mode_runs(trained):
     ("train posnet", 12), ("train shapenet", 12), ("tile_mesh mpp_r3", 15),
     ("contrast setup", 13)])
 def test_what_still_raises(case, item, tmp_path):
-    """The tile mesh of a tiled manual config raises with the ROADMAP.md
-    item that ports it (the tiled mode itself is ported). CNN training on
+    """The tile mesh of a tiled manual config raised naming item 15 until
+    that item was ported: it is now accepted, and no error of the port
+    names item 15. CNN training on
     the host patch pipeline raised naming item 12 until that item was
     ported: ``pos_quick`` / ``shape_quick`` (no
     ``data_loader.device_pipeline``) now train, cut to one epoch of 32
@@ -292,17 +294,21 @@ def test_what_still_raises(case, item, tmp_path):
             with open(path) as f:
                 assert f"item {item})" not in f.read(), path
         return
-    if case.startswith("tile_mesh"):
-        cfg = tmm.load_mpp_config("mpp_r3")
-        assert "manual" in cfg and cfg["inference"]["scene_mode"] == "tiled"
-        tmm.check_inference_config(cfg)
-        cfg["inference"]["tile_mesh"] = True
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tmm.check_inference_config(cfg)
+    assert case.startswith("tile_mesh")
+    cfg = tmm.load_mpp_config("mpp_r3")
+    assert "manual" in cfg and cfg["inference"]["scene_mode"] == "tiled"
+    tmm.check_inference_config(cfg)
+    cfg["inference"]["tile_mesh"] = True
+    tmm.check_inference_config(cfg)
+    port = os.path.join(tw.ROOT, "mpp_cnn_rs_object_detection_torch")
+    for path in glob.glob(os.path.join(port, "**", "*.py"), recursive=True):
+        with open(path) as f:
+            assert f"item {item})" not in f.read(), path
 
 
 # every MPP config: its train mode, and what its inference still lacks
-_INFER_ITEM = {"mpp_r2": 15}
+# (mpp_r2's scene mesh, item 15, is ported)
+_INFER_ITEM: dict = {}
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -312,7 +318,7 @@ def test_every_mpp_config_trains_or_builds(name):
     """The 26 logistic configs train with the ordering criterion on the
     no-calibration setup; the manual ones build on the legacy setup; at
     infer, every config runs (tiled or exact, with or without the
-    split/merge pair) except the meshed one (item 15)."""
+    split/merge pair, the meshed ``mpp_r2`` too)."""
     cfg = tmm.load_mpp_config(name)
     setup = tes.make_energy_setup(cfg)
     if "manual" in cfg:

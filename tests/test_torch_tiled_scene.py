@@ -160,7 +160,8 @@ def test_tiling_matches_jax(h, w, patch, overlap):
 def test_reference_configs_run_tiled(name):
     """Every tiled reference config is accepted, with its tile size, its
     sampler and its sequential mixture (split/merge in
-    ``mpp_verify_r2``); a tile mesh raises with ROADMAP.md item 15."""
+    ``mpp_verify_r2``); a tile mesh raised naming ROADMAP.md item 15
+    until that item was ported, and is accepted now."""
     cfg = tmm.load_mpp_config(name)
     tmm.check_inference_config(cfg)
     opts = tmm.tiled_options(cfg)
@@ -169,8 +170,7 @@ def test_reference_configs_run_tiled(name):
     assert opts["use_split_merge"] == (name == "mpp_verify_r2")
     assert "stopping" not in opts
     cfg["inference"]["tile_mesh"] = True
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tmm.check_inference_config(cfg)
+    tmm.check_inference_config(cfg)
 
 
 def test_tiled_cli_runs(workspaces, monkeypatch):
@@ -242,7 +242,7 @@ def _fake_chain_j(key, st, maps, spec, comb, kd, n_steps, t0=1.0,
 
 def _fake_chain_t(gen, st, maps, spec, comb, kd, n_steps, t0=1.0,
                   alpha_t=0.999, t_target=0.0, n_samples=0,
-                  samples_interval=1, burn_in=0, step_offset=0):
+                  samples_interval=1, burn_in=0, step_offset=0, mesh=None):
     final = _shifted_t(st, maps)
     stats = trj.ChainStats(
         accepted=torch.zeros(1, 8), proposed=torch.zeros(1, 8),
