@@ -46,8 +46,9 @@ Phases (each prints one line with its seconds; any failure raises):
      ``-p infereval -m mpp`` must launch the detection-map kernel 3 times
      per scene, run both scenes as one batched program that stops them at
      the same superstep, write both result pickles, ``dota/`` and
-     ``dota-SV/`` and every metrics JSON with finite APs, and remove its
-     chain checkpoint;
+     ``dota-SV/`` and every metrics JSON with finite APs and the 5 PR
+     curves at the JAX package's canvas (every eval below is checked the
+     same way), and remove its chain checkpoint;
   7. on phase 6's workspace (its CNN results reused), ``-p infereval -m mpp
      -c mpp_log_r12tta``: the trained combiner and calibration of that
      model store with the same depth cut, refine, score blend and backfill
@@ -62,7 +63,9 @@ Phases (each prints one line with its seconds; any failure raises):
      ``TRAIN_CROPS`` of its 64 crops): the train subset's CNN inference (3
      kernel launches per scene), calibration, the ordering criterion over
      kernel perturbations, and both files in the JAX package's format, a
-     finite loss per epoch and moved weights; then one batch alone (the
+     finite loss per epoch and moved weights, and the energy attribution
+     figure (the card's attribution against the CPU's within
+     ``ATTRIBUTION_TOL``, and complete); then one batch alone (the
      launches of one laned move, the peak memory of its vectors) and ``-p
      infereval`` with the trained combiner: finite APs;
   10. a copy of ``MANUAL_CONFIG`` (the legacy setup's manual mode) on the
@@ -78,7 +81,7 @@ Phases (each prints one line with its seconds; any failure raises):
      after its first segment resumes from its checkpoint to the end;
   12. a copy of ``SPLIT_MERGE_CONFIG`` (exact, batched, the superstep's
      split/merge pair) with its trained calibration and combiner on the
-     flagship's CNNs for one 341-superstep segment: accepted moves by
+     flagship's CNNs for one ``CUT_SEG``-superstep segment: accepted moves by
      kind, the carried cache and energy against a rebuild, finite APs;
      then on phase 3's scene with the flagship's model one in-memory
      segment of ``SM_MEMORY_SEG`` supersteps with the split/merge pair
@@ -160,7 +163,16 @@ Phases (each prints one line with its seconds; any failure raises):
      (``scene_mesh: true``, a no-op with one visible card) on the
      flagship's CNNs, one segment of ``MESH_SEG_SUPER`` supersteps per
      scene, with both overlay PNGs per scene (which phases 6-12 and 15
-     check too).
+     check too);
+  18. the figures: ``-p data_preview -m mpp`` on phase 6's workspace and
+     ``-m posnet`` on phase 14's ``config_pos`` copy (host pipeline: 8
+     patches and masks of its first batch); the papangelou field of phase
+     3's scene (stride ``PAP_STRIDE``, timed; on a ``PAP_CROP`` crop the
+     card's field against the CPU's within ``PAP_RTOL``); the interaction
+     figure (its pairs equal to the chain's cache) and the energy cross
+     plots (histograms equal to numpy's) of phase 4's final state; a GIF of
+     phase 6's two detection overlays; phase 7's 10 PR curves (~36,800
+     points each) timed.
 Then one JSON line per kernel table (its launches: every path's, each
 counted from 0 -- phases 3, 6, 9, 13, 14, 15's ``check_div`` and 17's
 banded PosNet; the others reuse CNN results), the card's name and power
@@ -188,21 +200,23 @@ TRAIN_EPOCHS, TRAIN_CROPS = 2, 16
 MANUAL_CONFIG = "mpp_exact_smoke"
 # phase 11: the tiled scene mode, depth-cut (the full budget is 30,000
 # burn-in moves and 2 sampling intervals of 128, in segments of 4,096);
-# 256 burn-in moves in two segments of 256 since phase 16 was added (512
-# in segments of 512 since phase 15, 1,024 before), to keep the script
-# within its 600 s
+# 128 burn-in moves in segments of 128 since phase 18 was added (256 in
+# segments of 256 since phase 16, 512 since phase 15, 1,024 before), to
+# keep the script within its 600 s
 TILED_CONFIG = "mpp_hrcM"
-TILED_BURN_IN, TILED_SEGMENT = 256, 256
-# its resume check: 256 burn-in moves + 2 x 128, killed after 256
-RESUME_BURN_IN, RESUME_SEGMENT = 256, 256
+TILED_BURN_IN, TILED_SEGMENT = 128, 128
+# its resume check: 128 burn-in moves + 2 x 128, killed after 128 (256
+# and 256 before phase 18)
+RESUME_BURN_IN, RESUME_SEGMENT = 128, 128
 # phase 12: the superstep's split/merge pair, trained; its in-memory
 # segments with the pair and with the move switch run SM_MEMORY_SEG of the
 # flagship's 341 supersteps since phase 17 was added (341 before)
 SPLIT_MERGE_CONFIG = "mpp_log_r10sm"
 SM_MEMORY_SEG = 128
-# phases 8, 10 and 15's exact CLI copies: one segment of CUT_SEG of the
-# configs' 341 supersteps per scene since phase 17 was added (341 before),
-# to keep the script within its 600 s
+# phases 8, 10 and 15's exact CLI copies, and phase 12's since phase 18
+# was added: one segment of CUT_SEG of the configs' 341 supersteps per
+# scene since phase 17 was added (341 before), to keep the script within
+# its 600 s
 CUT_SEG = 170
 # phases 7 and 8: the trained extension config on the same CNNs
 EXT_CONFIG = "mpp_log_r12tta"
@@ -301,6 +315,20 @@ MESH_MAP_TOL = 1e-4
 # ~50 ms of the card's clock: longer than the host takes to queue a timed
 # run of calls
 SLEEP_CYCLES = 100_000_000
+# every eval's PR curves: the JAX package's canvas, a figsize (8, 4)
+# matplotlib figure at 100 dpi, RGBA
+IOUS = (0.05, 0.1, 0.25, 0.5, 0.75)
+PR_CURVE_SHAPE = (400, 800, 4)
+# phase 9: the energy attribution on the card against the CPU, and its
+# completeness (rows sum to f(x) - f(0)) within rtol |f(x) - f(0)| + atol
+ATTRIBUTION_TOL = 1e-5
+COMPLETENESS_RTOL, COMPLETENESS_ATOL = 5e-2, 5e-3
+# phase 18: the papangelou field's probe marks (size, ratio, angle), its
+# stride, the crop held card vs CPU and that tolerance
+PAP_MARKS = (5.0, 0.5, 0.3)
+PAP_STRIDE = 4
+PAP_CROP = 128
+PAP_RTOL = 1e-5
 
 
 def phase(name, t0):
@@ -682,11 +710,22 @@ def check_exports(root: str, model, name: str) -> dict:
         for sub in ("det/vehicle.txt", "imageSet.txt") + tuple(
                 f"gt/{i:04}.txt" for i in range(CLI_SCENES)):
             assert os.path.exists(os.path.join(dota, sub)), sub
-        for iou in (0.05, 0.1, 0.25, 0.5, 0.75):
+        for iou in IOUS:
             with open(os.path.join(dota, f"metrics{iou:.2f}.json")) as f:
                 aps[postfix, iou] = json.load(f)["vehicle"]["ap"]
+        check_pr_curves(dota)
     assert np.isfinite(list(aps.values())).all(), aps
     return aps
+
+
+def check_pr_curves(dota: str) -> None:
+    """The 5 PR-curve PNGs of an eval, at the JAX package's canvas."""
+    from mpp_cnn_rs_object_detection_torch.utils.png import png_header
+
+    for iou in IOUS:
+        shape = png_header(os.path.join(dota, f"prec_rec_curve_{iou:.2f}.png"))
+        if shape != PR_CURVE_SHAPE:
+            raise AssertionError(f"{dota}: PR curve at {iou}: {shape}")
 
 
 def ap_line(model, aps) -> str:
@@ -928,8 +967,10 @@ def train_phase(root: str, config, device, seed: int) -> int:
           f" host {sec['host']:.3f}); loading and cropping "
           f"{sec['crops']:.3f}; calibration {sec['calibrate']:.3f}; batch "
           f"maps {sec['prepare']:.3f}; perturbations {sec['perturb']:.3f}; "
-          f"vectors {sec['vectors']:.3f}; steps {sec['steps']:.3f}",
-          flush=True)
+          f"vectors {sec['vectors']:.3f}; steps {sec['steps']:.3f}; "
+          f"attribution figure (its 8 crops included) "
+          f"{sec['attribution']:.3f}", flush=True)
+    check_attribution(model, store)
     with inside(root):
         probe = train_batch_probe(model, device, seed)
     print(f"  one batch alone: {probe}", flush=True)
@@ -946,6 +987,47 @@ def train_phase(root: str, config, device, seed: int) -> int:
           f"launches {dk.KERNEL.launches} (CNN results reused); "
           f"{ap_line(model, aps)}", flush=True)
     return launches
+
+
+def check_attribution(model, store: str) -> None:
+    """Phase 9: ``figures/energy_attribution.png`` written; the trained
+    combiner's attribution on the card (``model.attribution``) against
+    the same on the CPU within ``ATTRIBUTION_TOL``, and complete: each
+    row's sum within ``COMPLETENESS_RTOL`` |f(x) - f(0)| +
+    ``COMPLETENESS_ATOL`` of f(x) - f(0)."""
+    import numpy as np
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.mpp.combinators import combine
+    from mpp_cnn_rs_object_detection_torch.mpp.figures import (
+        energy_attribution,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.state import to_device
+    from mpp_cnn_rs_object_detection_torch.utils.png import png_header
+
+    path = os.path.join(store, "figures", "energy_attribution.png")
+    if model.attribution is None or not os.path.exists(path):
+        raise AssertionError("-p train wrote no energy attribution figure")
+    vec, card = (model.attribution[k] for k in ("vectors", "attributions"))
+    cpu_comb = to_device(model.energy_model, "cpu")
+    t0 = time.perf_counter()
+    cpu = energy_attribution(cpu_comb, vec)
+    t_cpu = time.perf_counter() - t0
+    err = float(np.abs(card - cpu).max())
+    x = torch.as_tensor(vec)
+    gap = (combine(cpu_comb, x) - combine(cpu_comb, torch.zeros_like(x))
+           ).numpy()
+    off = np.abs(card.sum(-1) - gap)
+    slack = COMPLETENESS_RTOL * np.abs(gap) + COMPLETENESS_ATOL - off
+    print(f"  energy attribution: {vec.shape[0]} GT vectors of "
+          f"{vec.shape[1]} terms, figure {png_header(path)}; card vs CPU "
+          f"max abs {err:.3e} (tol {ATTRIBUTION_TOL}; CPU {t_cpu:.3f} s); "
+          f"completeness: |row sum - (f(x) - f(0))| max {off.max():.3e}, "
+          f"least slack {slack.min():.3e}", flush=True)
+    if not err <= ATTRIBUTION_TOL:
+        raise AssertionError(f"attribution card vs CPU off by {err}")
+    if not (slack >= 0).all():
+        raise AssertionError(f"attribution not complete: {off.max()}")
 
 
 def manual_phase(root: str, config, device) -> None:
@@ -1215,7 +1297,8 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
     cfg_path = mpp_config_copy(root, SPLIT_MERGE_CONFIG, name,
                                blocks={"dataset": {
                                    k: config["dataset"][k] for k in
-                                   ("position_model", "shape_model")}})
+                                   ("position_model", "shape_model")}},
+                               seg_super=CUT_SEG)
     captured = []
     batched = mpp_model.run_exact_scenes_batched
 
@@ -1240,7 +1323,7 @@ def split_merge_phase(root: str, config, device, inference, data) -> None:
               f" kind (rejected, birth, death, move, split, merge) "
               f"{r.accepted_by_kind}; carried energy {u:.4f} vs rebuilt "
               f"{u_fresh:.4f}", flush=True)
-        if r.supersteps != 341:
+        if r.supersteps != CUT_SEG:
             raise AssertionError(f"{name} scene {i}: {r.supersteps} "
                                  "supersteps")
     sec = model.seconds
@@ -2019,11 +2102,12 @@ def translation_phase(root: str, config, device, seed: int) -> int:
                                   "config_oracle", "-d", "DOTA_smoke"],
                            device)
     aps = {}
-    for iou in (0.05, 0.1, 0.25, 0.5, 0.75):
-        with open(os.path.join(root, "data", "inference", "DOTA_smoke",
-                               "val", "oracle", "dota",
-                               f"metrics{iou:.2f}.json")) as f:
+    dota = os.path.join(root, "data", "inference", "DOTA_smoke", "val",
+                        "oracle", "dota")
+    for iou in IOUS:
+        with open(os.path.join(dota, f"metrics{iou:.2f}.json")) as f:
             aps[iou] = json.load(f)["vehicle"]["ap"]
+    check_pr_curves(dota)
     print(f"  -p infereval -m oracle: {sec:.3f} s; AP "
           + ", ".join(f"@{k} {v:.3f}" for k, v in aps.items()), flush=True)
     if any(v != 1.0 for v in aps.values()):
@@ -2275,6 +2359,7 @@ def check_detector_export(model, kind: str, root: str, seconds: float
         with open(os.path.join(results, "dota",
                                f"metrics{iou:.2f}.json")) as f:
             aps[iou] = json.load(f)["vehicle"]["ap"]
+    check_pr_curves(os.path.join(results, "dota"))
     print(f"  -p infereval -m {kind}: {seconds:.3f} s; detections per val "
           f"scene {n_det}; AP {aps}", flush=True)
     if not all(np.isfinite(v) for v in aps.values()):
@@ -2611,6 +2696,165 @@ def mesh_phase(root: str, config, inference, data, image, device,
     return launches
 
 
+def figures_phase(root: str, config, inference, data, result, device
+                  ) -> None:
+    """Phase 18: ``-p data_preview -m mpp`` on phase 6's workspace and
+    ``-m posnet`` on phase 14's ``config_pos`` copy (host pipeline);
+    ``papangelou_heatmap`` on phase 3's maps with the flagship's combiner
+    (timed; on a ``PAP_CROP`` crop the card's field against the CPU's);
+    ``interaction_figure`` and ``energy_cross_plots`` on phase 4's final
+    state; ``make_gif`` over phase 6's two detection overlays; and the
+    PR curves of phase 7's eval (its backfilled detections) timed."""
+    import numpy as np
+    import torch
+
+    from mpp_cnn_rs_object_detection_torch.metrics.dota_eval import (
+        pr_curve_plot,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.energies import (
+        energy_vectors,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.figures import (
+        energy_cross_plots,
+        interaction_figure,
+        papangelou_heatmap,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
+        crop_image_w_maps,
+    )
+    from mpp_cnn_rs_object_detection_torch.mpp.state import to_device
+    from mpp_cnn_rs_object_detection_torch.utils.config import (
+        get_inference_path,
+    )
+    from mpp_cnn_rs_object_detection_torch.utils.display import make_gif
+    from mpp_cnn_rs_object_detection_torch.utils.png import png_header
+
+    figs = os.path.join(root, "figures")
+    os.makedirs(figs)
+    name = config["model_name"]
+
+    # (a) the MPP's preview of the train scenes
+    _, sec = run_cli(root, os.path.join(root, name + ".json"), device,
+                     "data_preview")
+    preview = os.path.join(root, "models", "mpp", name, "data_preview")
+    shapes = {f: png_header(os.path.join(preview, f))
+              for f in sorted(os.listdir(preview))}
+    print(f"  -p data_preview -m mpp: {sec:.3f} s; {shapes}", flush=True)
+    if sorted(shapes) != [f"preview_{i:04}_gt.png"
+                          for i in range(CLI_SCENES)] or \
+            set(shapes.values()) != {(HEIGHT, WIDTH, 3)}:
+        raise AssertionError(f"MPP preview {shapes}")
+
+    # (b) a host-pipeline PosNet's first train batch
+    cfg = host_configs()["posnet"]
+    model, sec = run_cnn_cli(root, "posnet", cfg, device, "data_preview")
+    samples = os.path.join(model.save_path, "data_samples_train")
+    n = min(model.batch_size, 8)
+    p = cfg["data_loader"]["patch_maker_params"]["patch_size"]
+    want = {f"sample_b00_{j:04}_{k}.png": (p, p, 3) for j in range(n)
+            for k in ("raw", "mask")}
+    got = {f: png_header(os.path.join(samples, f))
+           for f in os.listdir(samples)}
+    print(f"  -p data_preview -m posnet ({cfg['model_name']}, host "
+          f"pipeline): {sec:.3f} s; {len(got)} PNGs of {set(got.values())}",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"PosNet preview {got}")
+
+    # (c) the papangelou field of phase 3's scene
+    setup, comb = inference.setup, inference.comb
+    maps = setup.make_maps(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pap = papangelou_heatmap(data.image, maps, setup.spec, comb, PAP_MARKS,
+                             os.path.join(figs, "papangelou.png"),
+                             stride=PAP_STRIDE)
+    t_pap = time.perf_counter() - t0
+    # the scene as the chain left it (padded to its bucket in exact mode)
+    h, w = data.image.shape[:2]
+    want = (-(-h // PAP_STRIDE), -(-w // PAP_STRIDE))
+    crop = crop_image_w_maps(data, np.zeros(2, int), PAP_CROP)
+    crop_maps = setup.make_maps(crop)
+    fields = [papangelou_heatmap(
+        crop.image, m, setup.spec, c, PAP_MARKS,
+        os.path.join(figs, f"papangelou_crop_{d}.png"), stride=PAP_STRIDE)
+        for d, m, c in (("card", crop_maps, comb),
+                        ("cpu", to_device(crop_maps, "cpu"),
+                         to_device(comb, "cpu")))]
+    rel = float(np.max(np.abs(fields[0] - fields[1])
+                       / np.abs(fields[1])))
+    print(f"  papangelou_heatmap: {pap.shape[0] * pap.shape[1]} probes "
+          f"on {h}x{w} (stride {PAP_STRIDE}, marks {PAP_MARKS}) "
+          f"{t_pap:.3f} s, figure "
+          f"{png_header(os.path.join(figs, 'papangelou.png'))}; field "
+          f"{float(pap.min()):.3e} .. {float(pap.max()):.3e}; "
+          f"{PAP_CROP}^2 crop card vs CPU max rel {rel:.3e} (rtol "
+          f"{PAP_RTOL})", flush=True)
+    if pap.shape != want or not (np.isfinite(pap).all() and (pap > 0).all()):
+        raise AssertionError(f"papangelou field {pap.shape}")
+    if not rel <= PAP_RTOL:
+        raise AssertionError(f"papangelou crop card vs CPU: {rel}")
+
+    # (d) phase 4's final configuration
+    chain = result.chain
+    t0 = time.perf_counter()
+    pairs = interaction_figure(data.image, chain.state, chain.cache,
+                               os.path.join(figs, "interactions.png"))
+    t_int = time.perf_counter() - t0
+    ov = chain.cache.overlap.cpu().numpy()
+    dist = chain.cache.dist.cpu().numpy()
+    bad = [(i, j) for i, j, v in pairs
+           if ov[i, j] != v or not dist[i, j] <= 32.0 or i >= j]
+    alive = chain.state.alive
+    t0 = time.perf_counter()
+    vec = energy_vectors(chain.state, chain.maps, setup.spec)[alive]
+    counts = energy_cross_plots(vec, list(setup.spec.names),
+                                os.path.join(figs, "energy_cross.png"),
+                                per_point_energy=comb(vec))
+    t_cross = time.perf_counter() - t0
+    host = vec.cpu().numpy()
+    hist = np.stack([np.histogram(host[:, k], bins=20)[0]
+                     for k in range(host.shape[1])])
+    print(f"  interaction_figure: {len(pairs)} pairs within 32 "
+          f"px of {int(alive.sum())} points, {t_int:.3f} s; "
+          f"energy_cross_plots: {host.shape[1]}^2 panels, {t_cross:.3f} s",
+          flush=True)
+    if not pairs or bad:
+        raise AssertionError(f"interaction pairs: {len(pairs)}, off {bad}")
+    if not np.array_equal(counts, hist):
+        raise AssertionError("cross-plot histograms differ from numpy's")
+
+    # (e) an animated GIF of phase 6's detection overlays
+    with inside(root):
+        results_dir = get_inference_path(name, "synth_smoke", "val")
+        ext_dir = get_inference_path(EXT_CONFIG, "synth_smoke", "val")
+    t0 = time.perf_counter()
+    gif = make_gif(results_dir, "*_detection.png", "detections.gif")
+    t_gif = time.perf_counter() - t0
+    with open(gif, "rb") as f:
+        body = f.read()
+    print(f"  make_gif: {CLI_SCENES} overlays of {HEIGHT}x{WIDTH}, "
+          f"{len(body)} bytes, {t_gif:.3f} s", flush=True)
+    if not (body.startswith(b"GIF89a") and body.endswith(b";")
+            and body.count(b"\x21\xf9\x04") >= CLI_SCENES):
+        raise AssertionError("make_gif wrote no GIF89a")
+
+    # (f) the PR curves of the largest eval: phase 7's, both variants
+    curves = []
+    for postfix in ("", "-SV"):
+        for iou in IOUS:
+            with open(os.path.join(ext_dir, "dota" + postfix,
+                                   f"metrics{iou:.2f}.json")) as f:
+                m = json.load(f)["vehicle"]
+            curves.append((m["recall"], m["precision"]))
+    t0 = time.perf_counter()
+    for k, (rec, prec) in enumerate(curves):
+        pr_curve_plot(rec, prec, os.path.join(figs, f"pr_{k}.png"))
+    t_pr = time.perf_counter() - t0
+    print(f"  PR curves of one eval ({EXT_CONFIG}, {len(curves)} PNGs of "
+          f"{len(curves[0][0])} points): {t_pr:.3f} s", flush=True)
+
+
 def unet_reference_check(pos_model, device):
     """The U-Net on the card against the CPU on a small input, in fp32."""
     import numpy as np
@@ -2793,6 +3037,10 @@ def run(args, device: str = "cuda:0") -> int:
                                    device, args.seed)
         phase("17 meshes on one card: banded chain, tile and batch "
               f"splits, banded PosNet, {MESH_CONFIG}", t0)
+        t0 = time.perf_counter()
+        figures_phase(root, config, inference, data, result, device)
+        phase("18 figures: data_preview, papangelou field, interactions, "
+              "cross plots, GIF, PR curves", t0)
     finally:
         shutil.rmtree(root)
 

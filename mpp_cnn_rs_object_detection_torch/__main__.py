@@ -12,6 +12,9 @@
         -p {infer,eval,infereval} -c config_oracle [-d DATASET]
     python -m mpp_cnn_rs_object_detection_torch -m {fasterrcnn,bbavec} \
         -p {train,infer,eval,infereval} -c CONFIG [-d DATASET] [-o] [-r]
+    python -m mpp_cnn_rs_object_detection_torch \
+        -m {posnet,shapenet,mpp,oracle,fasterrcnn,bbavec} -p data_preview \
+        -c CONFIG [-d DATASET]
 
 It runs on the CUDA device; ``main(argv, device="cpu")`` runs it on the
 CPU. ``-p train -m posnet|shapenet`` trains every CNN config: on the
@@ -21,9 +24,12 @@ mining for a PosNet with ``error_update_interval``). The baseline
 detectors (Faster R-CNN, HBB; BBAVectors' CTRBOX, OBB) train on the device
 pipeline and infer with their DOTA export. The translators and the oracle
 run on the host; ``check_div`` holds the detection-map kernel to its plain
-version on the card (on the CPU, the plain version to numpy). The one
-procedure of ``main.py`` that the port does not have, ``data_preview``,
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+version on the card (on the CPU, the plain version to numpy). Every
+``eval`` writes the PR curves beside its metrics. ``data_preview`` writes
+the MPP's first 8 train scenes, or a host-pipeline CNN config's first
+train batch (its patches, and a PosNet's masks), as PNGs; it refuses a
+device-pipeline CNN config (no batch loader) and does nothing for the
+oracle and the detectors, as ``main.py``.
 """
 
 from __future__ import annotations
@@ -32,9 +38,6 @@ import argparse
 import json
 import logging
 import sys
-
-# procedures of main.py that are not ported -> ROADMAP.md item
-_NOT_PORTED_PROCEDURES = {"data_preview": "16"}
 
 
 def parse_args(argv=None):
@@ -75,10 +78,6 @@ def main(argv=None, device=None):
     device."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.procedure in _NOT_PORTED_PROCEDURES:
-        raise NotImplementedError(
-            f"procedure {args.procedure} is not ported (ROADMAP.md item "
-            f"{_NOT_PORTED_PROCEDURES[args.procedure]})")
     if args.procedure == "translate_dota":
         from mpp_cnn_rs_object_detection_torch.data.translate_dota import (
             translate_dota,
@@ -105,6 +104,7 @@ def main(argv=None, device=None):
 
     assert args.model is not None, "-m/--model required for this procedure"
     train = args.procedure == "train"
+    preview = args.procedure == "data_preview"
     config = load_config(args)
     # as main.py: a training run loads its stored model only to resume
     load = args.resume or not train
@@ -115,6 +115,9 @@ def main(argv=None, device=None):
 
         model = OracleModel(config, dataset=args.dataset)
     elif args.model in ("posnet", "shapenet"):
+        from mpp_cnn_rs_object_detection_torch.models.base import (
+            check_preview_pipeline,
+        )
         from mpp_cnn_rs_object_detection_torch.models.posnet_model import (
             PosNetModel,
         )
@@ -122,9 +125,12 @@ def main(argv=None, device=None):
             ShapeNetModel,
         )
 
+        if preview:
+            # before the trainer builds its data
+            check_preview_pipeline(config)
         cls = PosNetModel if args.model == "posnet" else ShapeNetModel
         model = cls(config, device, load=load, dataset=args.dataset,
-                    overwrite=args.overwrite, train=train)
+                    overwrite=args.overwrite, train=train or preview)
     elif args.model in ("fasterrcnn", "bbavec"):
         from mpp_cnn_rs_object_detection_torch.models.fasterrcnn_model import (
             BBAVecModel,
@@ -144,6 +150,8 @@ def main(argv=None, device=None):
 
     if train:
         model.train()
+    elif preview:
+        model.data_preview()
     elif args.procedure == "infer":
         model.infer(subset=args.subset, overwrite=args.overwrite)
     elif args.procedure == "eval":

@@ -7,9 +7,9 @@ whose non-zero pixels are car centers. Images are rescaled from 0.15 m/px
 to the target GSD with Pillow's bilinear reduction written out
 (``data/image_ops.py:resize_bilinear_u8``, band by band), centers are
 scaled along, and every car gets the parameters (4, 4, 0). Images are read
-with ``utils/png.py:read_png`` (8-bit non-interlaced gray, RGB, RGBA) and
-written with ``write_png``; a gray + alpha image raises (Pillow would
-resample it with premultiplied alpha).
+with ``utils/png.py:read_png`` (what Pillow reads) and written with
+``write_png``. A gray + alpha image is resampled as Pillow resamples it,
+with premultiplied alpha (``resize_la_u8``).
 """
 
 from __future__ import annotations
@@ -51,12 +51,24 @@ def fetch_cowc_paths(data_path: str):
     return list(zip(images, annotations))
 
 
+def resize_la_u8(img: np.ndarray, size) -> np.ndarray:
+    """Pillow's bilinear ``resize`` of an (H, W, 2) uint8 gray + alpha
+    (``LA``) image: converted to premultiplied ``La`` (``L * A / 255``
+    rounded as Pillow's ``MULDIV255``), each band resized, then converted
+    back (``255 * L // A``, clipped; 0 where A is 0)."""
+    gray, alpha = img[..., 0].astype(np.int64), img[..., 1]
+    tmp = gray * alpha + 128
+    pre = (((tmp >> 8) + tmp) >> 8).astype(np.uint8)
+    gray_r = resize_bilinear_u8(pre, size).astype(np.int64)
+    alpha_r = resize_bilinear_u8(alpha, size).astype(np.int64)
+    gray_r = np.where(alpha_r == 0, 0, np.clip(
+        255 * gray_r // np.maximum(alpha_r, 1), 0, 255))
+    return np.stack([gray_r, alpha_r], axis=-1).astype(np.uint8)
+
+
 def _prepare_one(image_id: int, path_image: str, path_label: str,
                  save_folder: str, scale: float) -> Dict:
     image = read_png(path_image).astype(np.float32)[..., :3]
-    if image.ndim == 3 and image.shape[2] == 2:
-        raise ValueError(f"{path_image}: gray + alpha images are not "
-                         "translated")
     if image.max() > 1.0:
         image = image / 255.0
     annot = read_png(path_label)
@@ -64,8 +76,10 @@ def _prepare_one(image_id: int, path_image: str, path_label: str,
 
     h, w = image.shape[:2]
     nh, nw = max(1, int(h * scale)), max(1, int(w * scale))
-    image_r = resize_bilinear_u8((image * 255).astype(np.uint8),
-                                 (nw, nh)).astype(np.float32) / 255.0
+    resize = (resize_la_u8 if image.ndim == 3 and image.shape[2] == 2
+              else resize_bilinear_u8)
+    image_r = resize((image * 255).astype(np.uint8),
+                     (nw, nh)).astype(np.float32) / 255.0
     centers = (centers * scale).astype(int)
 
     parameters = np.array([[4.0, 4.0, 0.0]] * len(centers)).reshape(-1, 3)

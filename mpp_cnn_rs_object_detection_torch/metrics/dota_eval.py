@@ -8,8 +8,10 @@ all-points interpolated area under the PR curve (``use_07_metric=False``). Both 
 polyiou module) and HBB (axis-aligned IoU) are supported.
 
 Evaluates at IoU in {0.05, 0.1, 0.25, 0.5, 0.75} and writes
-``metrics{iou}.json``. The PR-curve plots are not ported (the GPU host has
-no matplotlib).
+``metrics{iou}.json`` and, with ``make_plots`` (the default), the PR curve
+``prec_rec_curve_{iou}.png`` (recall on x, precision on y, 8 x 4 inches at
+100 dpi), drawn with ``utils/raster_plot.py`` (the GPU host has no
+matplotlib); as in the JAX package each class overwrites that file.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 
 from mpp_cnn_rs_object_detection_torch.metrics.polyiou import poly_iou_batch
 from mpp_cnn_rs_object_detection_torch.utils.config import get_inference_path
+from mpp_cnn_rs_object_detection_torch.utils import raster_plot
 from mpp_cnn_rs_object_detection_torch.utils.files import NumpyEncoder
 
 IOU_THRESHOLDS = [0.05, 0.1, 0.25, 0.5, 0.75]
@@ -162,9 +165,21 @@ def voc_eval(detpath: str, annopath: str, imagesetfile: str, classname: str,
     return recall, precision, ap
 
 
+def pr_curve_plot(recall, precision, path: str) -> raster_plot.Axes:
+    """The precision-recall curve, as the JAX package's ``plt.figure(
+    figsize=(8, 4))``; returns its axes (``to_pixel`` finds a point)."""
+    fig = raster_plot.figure(figsize=(8, 4))
+    ax = fig.gca()
+    ax.set_xlabel("recall")
+    ax.set_ylabel("precision")
+    ax.plot(recall, precision)
+    fig.savefig(path)
+    return ax
+
+
 def dota_eval(model_dir: str, dataset: str, subset: str, det_type: str,
-              postfix: str = "", classnames: List[str] = None
-              ) -> Dict[float, Dict]:
+              postfix: str = "", classnames: List[str] = None,
+              make_plots: bool = True) -> Dict[float, Dict]:
     """Evaluate a model's devkit-format output dir at all IoU thresholds."""
     assert det_type in ["obb", "hbb"]
     model_name = os.path.split(model_dir)[1]
@@ -195,6 +210,9 @@ def dota_eval(model_dir: str, dataset: str, subset: str, det_type: str,
             )
             mean_ap += ap
             results[classname] = {"ap": ap, "precision": prec, "recall": rec}
+            if make_plots:
+                pr_curve_plot(rec, prec, os.path.join(
+                    dota_files_path, f"prec_rec_curve_{iou_t:.2f}.png"))
         mean_ap /= len(classnames)
         print(f"IoU {iou_t}: mAP = {mean_ap:.4f}")
 

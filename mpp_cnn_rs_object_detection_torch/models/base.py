@@ -1,8 +1,8 @@
 """The model interface of the CLI and the CNN trainer.
 
 Counterpart of ``mpp_cnn_rs_object_detection_tpu/models/base.py``:
-``BaseModel`` (without ``data_preview``, ``ROADMAP.md`` item 16) and
-``PatchBasedTrainer`` with both of JAX's input pipelines:
+``BaseModel`` and ``PatchBasedTrainer`` with both of JAX's input
+pipelines:
 
   - the device-resident one (``data_loader.device_pipeline``:
     ``regen_stacks``, ``train_epoch``, ``val_epoch``): patch stacks built
@@ -25,6 +25,9 @@ Both run one adam step per batch, read the metrics once per epoch, and
 write a rolling checkpoint every epoch and ``model.msgpack`` at the end.
 JAX's host path stacks an epoch's batches before its one-dispatch scan;
 the port steps batch by batch (the same steps, without holding the epoch).
+``data_preview`` writes the host train loader's first batch as PNGs; a
+device-pipeline config has no loader, and is refused
+(``check_preview_pipeline``).
 """
 
 from __future__ import annotations
@@ -69,6 +72,8 @@ from mpp_cnn_rs_object_detection_torch.models.unet import init_like_flax_
 from mpp_cnn_rs_object_detection_torch.utils.config import (
     get_dataset_base_path,
 )
+from mpp_cnn_rs_object_detection_torch.utils.files import make_if_not_exist
+from mpp_cnn_rs_object_detection_torch.utils.png import save_unit_image
 
 # the JAX trainer draws epoch e's augmentation from fold_in(PRNGKey(1234), e);
 # the port seeds a generator per epoch from the same pair
@@ -89,6 +94,18 @@ class BaseModel(ABC):
     def infereval(self, subset: str = "val", **kwargs):
         self.infer(subset=subset, **kwargs)
         self.eval()
+
+
+def check_preview_pipeline(config: Dict) -> None:
+    """``data_preview`` shows the host pipeline's train loader: raise for a
+    config on the device pipeline, which has none (the JAX package's
+    device-pipeline trainer has no ``train_loader`` either)."""
+    if (config.get("data_loader") or {}).get("device_pipeline"):
+        raise ValueError(
+            f"-p data_preview shows the host patch pipeline's train batches;"
+            f" {config.get('model_name')} sets data_loader.device_pipeline, "
+            "whose device-resident patch stacks have no batch loader to "
+            "preview")
 
 
 class DeviceStack(NamedTuple):
@@ -126,6 +143,8 @@ class PatchBasedTrainer:
 
     state: TrainState
     TARGET_KEYS: Tuple[str, ...] = ()
+    # the loader targets ``data_preview`` writes beside each patch
+    PREVIEW_TARGETS: Tuple[str, ...] = ()
     DEVICE_PIPELINE_ONLY = False
 
     def init_training(self, dtype: torch.dtype, resume: bool) -> None:
@@ -328,6 +347,22 @@ class PatchBasedTrainer:
         self.stack_seconds.append(("train", time.perf_counter() - t0))
         self.regenerations.append((epoch, densities is not None))
         self.data_train.update_files()
+
+    def data_preview(self) -> None:
+        """The first (up to) 8 patches of the train loader's first batch
+        as ``data_samples_train/sample_b00_{j:04}_raw.png`` and each of
+        ``PREVIEW_TARGETS`` as ``..._{key}.png``, in [0, 1] as 8-bit RGB
+        (gray maps as three equal channels). Host pipeline only."""
+        check_preview_pipeline(self.config)
+        samples_dir = os.path.join(self.save_path, "data_samples_train")
+        make_if_not_exist(samples_dir)
+        for x, y in self.train_loader:
+            for j in range(min(len(x), 8)):
+                stem = os.path.join(samples_dir, f"sample_b00_{j:04}")
+                save_unit_image(f"{stem}_raw.png", x[j])
+                for key in self.PREVIEW_TARGETS:
+                    save_unit_image(f"{stem}_{key}.png", y[key][j])
+            break
 
     def clean(self) -> None:
         """Remove the temporary patch set."""

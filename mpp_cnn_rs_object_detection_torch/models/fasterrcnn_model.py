@@ -229,6 +229,9 @@ class _DetectorBase(BaseModel, PatchBasedTrainer):
                            min_confidence: float) -> Dict:
         raise NotImplementedError
 
+    def data_preview(self):
+        """Nothing to preview (as the JAX package's detectors)."""
+
     def infer(self, subset: str = "val", overwrite: bool = True,
               min_confidence: Optional[float] = None, **kwargs):
         """``NNNN_results.pkl`` per image of the subset and the DOTA

@@ -39,6 +39,9 @@ class OracleModel(BaseModel):
     def train(self):
         print("The oracle model won't train")
 
+    def data_preview(self):
+        """Nothing to preview (as the JAX package's oracle)."""
+
     def infer(self, subset: str = "val", overwrite: bool = True, **kwargs):
         """Each image's GT as its detections: DOTA files and one result
         pickle per image."""

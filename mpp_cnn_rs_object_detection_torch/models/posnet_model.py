@@ -182,6 +182,7 @@ class PosNetModel(BaseModel, PatchBasedTrainer):
     an inference wrapper."""
 
     TARGET_KEYS = ("pointing_map", "mask", "center_binary_map_dil")
+    PREVIEW_TARGETS = ("mask",)
 
     def __init__(self, config: Dict, device=None, load: bool = False,
                  dataset: Optional[str] = None, overwrite: bool = False,

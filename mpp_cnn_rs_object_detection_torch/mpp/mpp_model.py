@@ -33,7 +33,10 @@ Counterpart of ``mpp_cnn_rs_object_detection_tpu/mpp/mpp_model.py``:
   - ``SceneInference`` runs the same models on in-memory images, on one
     device.
 
-Not ported: the energy attribution figure (``ROADMAP.md`` item 16).
+After training, ``train()`` draws the energy attribution figure
+(``figures/energy_attribution.png``, ``mpp/figures.py``) on 8 more train
+crops, as the JAX package does; ``data_preview()`` writes the first 8
+train scenes under ``data_preview/``.
 """
 
 from __future__ import annotations
@@ -72,9 +75,14 @@ from mpp_cnn_rs_object_detection_torch.mpp.combinators import (
     manual_hierarchical,
     save_combiner,
 )
+from mpp_cnn_rs_object_detection_torch.mpp.energies import energy_vectors
 from mpp_cnn_rs_object_detection_torch.mpp.energy_setups import (
     EnergySetup,
     make_energy_setup,
+)
+from mpp_cnn_rs_object_detection_torch.mpp.figures import (
+    attribution_summary_plot,
+    energy_attribution,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.image_data import (
     ImageWMaps,
@@ -90,10 +98,12 @@ from mpp_cnn_rs_object_detection_torch.mpp.scene import (
     run_exact_scenes_batched,
     run_tiled_scene,
 )
+from mpp_cnn_rs_object_detection_torch.mpp.state import state_from_arrays
 from mpp_cnn_rs_object_detection_torch.mpp.stopping import (
     stopping_from_config,
 )
 from mpp_cnn_rs_object_detection_torch.mpp.train_weights import (
+    _on_device,
     train_integral_criterion,
     train_ordering_criterion,
 )
@@ -114,6 +124,7 @@ from mpp_cnn_rs_object_detection_torch.utils.files import (
     load_results,
     make_if_not_exist,
 )
+from mpp_cnn_rs_object_detection_torch.utils.png import write_png
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -491,6 +502,8 @@ class MPPModel(BaseModel):
         # what the last infer exported, by image id: host arrays and counts
         # (no chain state, no maps)
         self.results: Dict[int, SceneResult] = {}
+        # the last energy attribution: host "vectors" and "attributions"
+        self.attribution: Optional[Dict[str, np.ndarray]] = None
         comb_file = os.path.join(self.save_path,
                                  "energy_combination_model.json")
         if load:
@@ -611,9 +624,55 @@ class MPPModel(BaseModel):
                                    "energy_combination_model.json"),
                       self.energy_model)
         logging.info("saved energy_combination_model.json")
-        logging.warning("the energy attribution figure "
-                        "(figures/energy_attribution.png) is not ported "
-                        "(ROADMAP.md item 16)")
+        self._dump_attribution_figure(names)
+
+    def _dump_attribution_figure(self, names) -> None:
+        """Per-term attribution of the trained combined energy on the GT
+        configurations' energy vectors of 8 train crops (the JAX package's
+        ``_dump_attribution_figure``: the same draws from ``self.rng``),
+        the vectors computed on the model's device, written as
+        ``figures/energy_attribution.png``; kept in ``self.attribution``
+        (host ``vectors`` and ``attributions``). Crops without GT add no
+        row; without any GT nothing is drawn (logged)."""
+        t0 = time.perf_counter()
+        rows = []
+        for c in self._sample_crops("train", 8):
+            if len(c.gt_centers) == 0:
+                continue
+            maps = self.energy_setup.make_maps(_on_device(c, self.device))
+            gt = state_from_arrays(c.gt_centers[:self.capacity],
+                                   c.gt_marks[:self.capacity],
+                                   capacity=self.capacity,
+                                   device=self.device)
+            vec = energy_vectors(gt, maps, self.energy_setup.spec)
+            rows.append(vec[gt.alive])
+        if not rows:
+            logging.info("no train crop holds a GT object: no energy "
+                         "attribution figure")
+            return
+        flat = torch.cat(rows)
+        attr = energy_attribution(self.energy_model, flat)
+        fig_dir = os.path.join(self.save_path, "figures")
+        make_if_not_exist(fig_dir, recursive=True)
+        attribution_summary_plot(
+            attr, flat, list(names),
+            os.path.join(fig_dir, "energy_attribution.png"))
+        self.attribution = {"vectors": flat.cpu().numpy(),
+                            "attributions": attr}
+        self._add_seconds({"attribution": time.perf_counter() - t0})
+        logging.info("saved figures/energy_attribution.png")
+
+    def data_preview(self) -> None:
+        """The first 8 train scenes as ``data_preview/preview_{name}_gt.png``
+        (the image clipped to [0, 1], as 8 bits)."""
+        preview_dir = os.path.join(self.save_path, "data_preview")
+        make_if_not_exist(preview_dir)
+        for patch_id in self._image_ids("train")[:8]:
+            data = self._load_image(patch_id, "train")
+            image = np.clip(_host(data.image), 0, 1)
+            write_png(os.path.join(preview_dir,
+                                   f"preview_{data.name}_gt.png"),
+                      (image * 255).astype(np.uint8))
 
     def infer(self, subset: str = "val", overwrite: bool = True, **kwargs):
         """Chains and export of every val scene. With ``batch_scenes`` (no

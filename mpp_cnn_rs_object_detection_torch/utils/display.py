@@ -8,18 +8,24 @@ numpy, pixel-equal to OpenCV, and vectorised over every segment of every
 shape: a scene's export holds tens of thousands of rectangles. Shapes are
 drawn in their order, so where two overlap the later one's colour wins, as
 with OpenCV. ``save_image`` writes the RGB array through
-``utils/png.py:write_png``. ``make_gif`` is not ported (``ROADMAP.md``
-item 16).
+``utils/png.py:write_png``. ``make_gif`` writes an animated GIF89a with its
+own LZW coder (``write_gif``) where the JAX package uses Pillow: a frame
+of at most 256 colours keeps its exact pixels; a frame with more gets its
+own median-cut palette of 256 (Pillow's quantizer is not copied; the
+difference is in ``ROADMAP.md`` section 3).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import glob
+import os
+import struct
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from mpp_cnn_rs_object_detection_torch.ops.geometry import rect_to_poly_np
-from mpp_cnn_rs_object_detection_torch.utils.png import write_png
+from mpp_cnn_rs_object_detection_torch.utils.png import read_png, write_png
 
 
 def _to_u8(image: np.ndarray) -> np.ndarray:
@@ -144,6 +150,13 @@ def _segment_pixels(p1: np.ndarray, p2: np.ndarray, h: int, w: int):
     return seg, rows, cols
 
 
+def last_writes(flat: np.ndarray) -> np.ndarray:
+    """Of writes to flat pixel indices ``flat``, in order, the index of
+    the last write of each pixel (the one that wins), by pixel."""
+    _, first = np.unique(flat[::-1], return_index=True)
+    return flat.size - 1 - first
+
+
 def _draw_segments(img: np.ndarray, p1: np.ndarray, p2: np.ndarray,
                    colors: np.ndarray) -> np.ndarray:
     """Set each segment's pixels to its colour (saturated into 0-255, as
@@ -153,10 +166,7 @@ def _draw_segments(img: np.ndarray, p1: np.ndarray, p2: np.ndarray,
     if seg.size == 0:
         return img
     flat = rows * w + cols
-    # the last write of each pixel wins
-    last = np.full(h * w, -1)
-    np.maximum.at(last, flat, np.arange(flat.size))
-    keep = last[last >= 0]
+    keep = last_writes(flat)
     img.reshape(-1, img.shape[-1])[flat[keep]] = np.clip(colors[seg[keep]],
                                                          0, 255)
     return img
@@ -231,6 +241,165 @@ def rectangles_over_image(image: np.ndarray, centers: np.ndarray,
 def save_image(path: str, image: np.ndarray) -> None:
     """An RGB (or gray, or [0, 1] float) image as an 8-bit RGB PNG."""
     write_png(path, _to_u8(image))
+
+
+def _rgb_frame(frame: np.ndarray) -> np.ndarray:
+    """An image as ``read_png`` gives it, as (H, W, 3) uint8 RGB: gray
+    repeated, alpha dropped, 16-bit gray's high byte."""
+    f = np.asarray(frame)
+    if f.dtype == bool:
+        f = f.astype(np.uint8) * 255
+    elif f.dtype == np.uint16:
+        f = (f >> 8).astype(np.uint8)
+    if f.ndim == 2:
+        f = f[..., None]
+    if f.shape[2] in (1, 2):
+        f = np.repeat(f[..., :1], 3, axis=2)
+    return np.ascontiguousarray(f[..., :3], dtype=np.uint8)
+
+
+def _median_cut(colors: np.ndarray, counts: np.ndarray, n: int = 256
+                ) -> np.ndarray:
+    """Boxes of (U, 3) distinct colours with their pixel counts: the box
+    with the widest channel range is split at its pixel-weighted median
+    until there are ``n``. Returns the box of each colour."""
+    boxes = [np.arange(len(colors))]
+    spans = [int(np.ptp(colors, axis=0).max())]
+    while len(boxes) < n and max(spans) > 0:
+        k = int(np.argmax(spans))
+        idx = boxes[k]
+        c = colors[idx]
+        ch = int(np.argmax(np.ptp(c, axis=0)))
+        order = idx[np.argsort(c[:, ch], kind="stable")]
+        cum = np.cumsum(counts[order])
+        cut = int(np.clip(np.searchsorted(cum, cum[-1] / 2) + 1, 1,
+                          len(order) - 1))
+        boxes[k:k + 1] = [order[:cut], order[cut:]]
+        spans[k:k + 1] = [int(np.ptp(colors[b], axis=0).max())
+                          for b in boxes[k:k + 2]]
+    label = np.empty(len(colors), np.int64)
+    for i, b in enumerate(boxes):  # one per palette entry (256)
+        label[b] = i
+    return label
+
+
+def _palette_frame(frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(palette (P, 3) uint8, (H, W) indices): the frame's own colours
+    when it has at most 256; else a median cut of its colours binned to 5
+    bits per channel, each entry the mean of its pixels' colours."""
+    flat = frame.reshape(-1, 3).astype(np.int64)
+    packed = flat[:, 0] << 16 | flat[:, 1] << 8 | flat[:, 2]
+    uniq, inverse = np.unique(packed, return_inverse=True)
+    if len(uniq) <= 256:
+        colors = np.stack([uniq >> 16, (uniq >> 8) & 255, uniq & 255], -1)
+        return colors.astype(np.uint8), inverse.reshape(frame.shape[:2])
+    q = flat >> 3
+    bins, inverse, counts = np.unique(q[:, 0] << 10 | q[:, 1] << 5
+                                      | q[:, 2], return_inverse=True,
+                                      return_counts=True)
+    centres = np.stack([bins >> 10, (bins >> 5) & 31, bins & 31], -1) * 8 + 4
+    index = _median_cut(centres, counts)[inverse]
+    n = np.bincount(index)
+    palette = np.stack([np.bincount(index, weights=flat[:, c]) / n
+                        for c in range(3)], -1)
+    return (np.round(palette).astype(np.uint8),
+            index.reshape(frame.shape[:2]))
+
+
+def _lzw(indices: np.ndarray, min_size: int) -> bytes:
+    """GIF's variable-width LZW of palette indices (codes of min_size + 1
+    to 12 bits, least significant bit first; a clear code first and
+    whenever the table is full, the end code last)."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    codes, widths = [clear], [min_size + 1]
+    table = {}
+    size, nxt = min_size + 1, end + 1
+    data = indices.astype(np.uint8).tobytes()
+    w = data[0]
+    for k in data[1:]:  # LZW is sequential: one step per pixel
+        key = (w << 8) | k
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        codes.append(w)
+        widths.append(size)
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+        else:
+            codes.append(clear)
+            widths.append(size)
+            table.clear()
+            size, nxt = min_size + 1, end + 1
+        w = k
+    codes += [w, end]
+    widths += [size, size]
+    # pack: each code's bits, least significant first
+    codes = np.asarray(codes, np.int64)
+    widths = np.asarray(widths, np.int64)
+    bit = np.arange(widths.sum()) - np.repeat(np.cumsum(widths) - widths,
+                                              widths)
+    bits = (np.repeat(codes, widths) >> bit) & 1
+    return np.packbits(bits.astype(np.uint8), bitorder="little").tobytes()
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\x00"
+
+
+def write_gif(path: str, frames: List[np.ndarray], duration_ms: int = 400,
+              loop: int = 0) -> None:
+    """An animated GIF89a of equal-sized frames (any array ``read_png``
+    gives), each with its own colour table, ``duration_ms`` per frame
+    (in hundredths of a second) and a NETSCAPE2.0 ``loop`` count (0:
+    forever). A frame equal to the one before it is merged into it, its
+    time added, as Pillow's writer does."""
+    rgb = [_rgb_frame(f) for f in frames]
+    h, w = rgb[0].shape[:2]
+    if any(f.shape[:2] != (h, w) for f in rgb):
+        raise ValueError("gif: the frames differ in size "
+                         f"{sorted({f.shape[:2] for f in rgb})}")
+    merged: List[Tuple[np.ndarray, int]] = []
+    for f in rgb:
+        if merged and np.array_equal(merged[-1][0], f):
+            merged[-1] = (f, merged[-1][1] + duration_ms)
+        else:
+            merged.append((f, duration_ms))
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0, 0, 0),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01"
+           + struct.pack("<H", loop) + b"\x00"]
+    for f, ms in merged:
+        palette, idx = _palette_frame(f)
+        bits = max(1, int(np.ceil(np.log2(max(len(palette), 2)))))
+        table = np.zeros((1 << bits, 3), np.uint8)
+        table[:len(palette)] = palette
+        out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", ms // 10)
+                   + b"\x00\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h,
+                                         0x80 | (bits - 1)))
+        out.append(table.tobytes())
+        min_size = max(2, bits)
+        out.append(bytes([min_size]) + _sub_blocks(_lzw(idx, min_size)))
+    out.append(b"\x3b")
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out))
+
+
+def make_gif(folder: str, pattern: str, output_name: str,
+             duration_ms: int = 400) -> Optional[str]:
+    """An animated GIF of the PNG frames in ``folder`` matching ``pattern``
+    (sorted by name), looping forever, written as ``folder/output_name``;
+    returns its path, or None when no file matches."""
+    paths = sorted(glob.glob(os.path.join(folder, pattern)))
+    if not paths:
+        return None
+    out = os.path.join(folder, output_name)
+    write_gif(out, [read_png(p) for p in paths], duration_ms=duration_ms)
+    return out
 
 
 def detection_comparison_figure(image: np.ndarray, det_centers, det_params,

@@ -6,12 +6,18 @@ reader of result pickles that either package wrote (``load_results``).
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import pickle
 from typing import Any, Iterable, Union
 
 import numpy as np
+
+
+def timestamp() -> str:
+    """The local time as ``YYYYmmdd-HHMMSS``."""
+    return datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
 
 
 def make_if_not_exist(path: Union[str, Iterable[str]], recursive: bool = False):

@@ -20,7 +20,10 @@ synthetic scenes of 96 x 80, patches of 32^2, U-Net [8, 16] in float32):
     ``tests/test_torch_cnn_train.py``'s two-epoch test, the error maps within
     one level, the mined patch sets compared, and each package resuming
     the other's checkpoint. The JAX model is built as ``main.py`` builds
-    it, with ``multiprocess=False`` and ``num_workers=1`` monkeypatched in.
+    it, with ``multiprocess=False`` and ``num_workers=1`` monkeypatched in;
+  - ``-p data_preview -m posnet|shapenet``: the train loader's first batch
+    written as the JAX package writes it, pixel for pixel; a
+    device-pipeline config refused before anything is built.
 """
 
 import functools
@@ -46,7 +49,10 @@ from mpp_cnn_rs_object_detection_torch.ops import mappings as tmap
 from mpp_cnn_rs_object_detection_torch.ops.sampler2d import (
     sample_point_2d as t_sample_point_2d,
 )
-from mpp_cnn_rs_object_detection_torch.utils.png import save_unit_image
+from mpp_cnn_rs_object_detection_torch.utils.png import (
+    read_png,
+    save_unit_image,
+)
 from mpp_cnn_rs_object_detection_tpu.data import augmentation as jaug
 from mpp_cnn_rs_object_detection_tpu.data import dataset as jds
 from mpp_cnn_rs_object_detection_tpu.data import label_processing as jlp
@@ -482,3 +488,55 @@ def test_cli_trains_host_configs_like_jax(ws, monkeypatch, caplog, kind):
     jstate = _leaves(_jax_tree(jm.state))
     for k, v in _leaves(back.state.to_jax()).items():
         np.testing.assert_array_equal(v, jstate[k], err_msg=k)
+
+
+# ------------------------------------------------------------ data preview
+
+
+@pytest.mark.parametrize("kind", ["posnet", "shapenet"])
+def test_data_preview_matches_jax(ws, monkeypatch, kind):
+    """``-p data_preview``: both packages build the model as ``main.py``
+    does for it (``train=True``, ``load=True``) and write the first train
+    batch's first 8 patches (and a PosNet's masks) as
+    ``data_samples_train/sample_b00_{j:04}_{raw,mask}.png``: the same
+    files, pixel for pixel."""
+    monkeypatch.chdir(ws)
+    _jax_host_path(monkeypatch)
+    jname, tname = f"preview_{kind}_jax", f"preview_{kind}_port"
+    jcls = JPosNet if kind == "posnet" else JShapeNet
+    jcls(_config(kind, jname), overwrite=False, load=True, train=True,
+         dataset=None).data_preview()
+    path = ws / f"{tname}.json"
+    path.write_text(json.dumps(_config(kind, tname)))
+    tcli.main(["-p", "data_preview", "-m", kind, "-c", str(path)],
+              device="cpu")
+    j_dir, t_dir = (ws / "models" / kind / n / "data_samples_train"
+                    for n in (jname, tname))
+    names = sorted(os.listdir(j_dir))
+    parts = ("raw", "mask") if kind == "posnet" else ("raw",)
+    assert names == sorted(os.listdir(t_dir)) == sorted(
+        f"sample_b00_{j:04}_{p}.png" for j in range(8) for p in parts)
+    for name in names:
+        np.testing.assert_array_equal(read_png(str(t_dir / name)),
+                                      np.asarray(Image.open(j_dir / name)))
+
+
+def test_data_preview_refuses_the_device_pipeline(ws, monkeypatch):
+    """A device-pipeline config has no batch loader to preview: the port
+    raises before building the model or its stacks. (JAX's fails there
+    with an ``AttributeError``: its device path builds no
+    ``train_loader``, which its ``data_preview`` reads; read from its
+    code, since building JAX's device stacks costs test time here.)"""
+    import inspect
+
+    monkeypatch.chdir(ws)
+    assert "train_loader" in inspect.getsource(JPosNet.data_preview)
+    assert "train_loader" not in inspect.getsource(
+        jbase.PatchBasedTrainer.__init_data_device__)
+    cfg = _config("posnet", "preview_device", device_pipeline=True)
+    path = ws / "preview_device.json"
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="device_pipeline"):
+        tcli.main(["-p", "data_preview", "-m", "posnet", "-c", str(path)],
+                  device="cpu")
+    assert not (ws / "models" / "posnet" / "preview_device").exists()

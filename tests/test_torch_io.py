@@ -39,6 +39,7 @@ from mpp_cnn_rs_object_detection_tpu.data.synth import (
 from mpp_cnn_rs_object_detection_tpu.models import unet as junet
 from mpp_cnn_rs_object_detection_tpu.ops.mappings import default_mappings
 from mpp_cnn_rs_object_detection_tpu.utils import config as jconfig
+from tests._torch_util import encode_png
 from tests._torch_util import one_torch_thread  # noqa: F401
 
 
@@ -177,15 +178,46 @@ def test_png_writer_compression_level(tmp_path, level):
     np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
 
 
-def test_png_refuses_what_it_does_not_read(tmp_path):
-    for name, pil in (
-            ("palette", Image.fromarray(np.zeros((4, 4, 3), np.uint8))
-             .convert("P")),
-            ("16-bit", Image.fromarray(np.zeros((4, 4), np.uint16)))):
-        path = str(tmp_path / f"{name}.png")
-        pil.save(path)
-        with pytest.raises(ValueError):
-            png.read_png(path)
+SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# every color type and bit depth the standard allows, each non-interlaced
+# and Adam7, and with a tRNS chunk where the type may carry one
+FORMATS = [(color, depth, interlace, trns)
+           for color, depths in ((0, (1, 2, 4, 8, 16)), (2, (8, 16)),
+                                 (3, (1, 2, 4, 8)), (4, (8, 16)),
+                                 (6, (8, 16)))
+           for depth in depths for interlace in (0, 1)
+           for trns in ((False, True) if color in (0, 2, 3) else (False,))]
+
+
+@pytest.mark.parametrize("color,depth,interlace,trns", FORMATS)
+def test_png_refuses_what_it_does_not_read(tmp_path, color, depth,
+                                           interlace, trns):
+    """The reader reads every PNG the standard allows: for each color type,
+    bit depth, interlace and tRNS chunk, ``read_png`` equals
+    ``np.asarray(Image.open(path))`` in dtype, shape and values (exact),
+    and ``png_header`` gives that array's channels. 13 x 11 pixels, so
+    Adam7's passes have ragged sizes."""
+    rng = np.random.default_rng(100 * color + 10 * depth + interlace)
+    h, w = 13, 11
+    values = rng.integers(0, 1 << depth, (h, w, SAMPLES[color]))
+    extra = []
+    if color == 3:
+        n = 1 << depth
+        extra.append((b"PLTE", rng.integers(0, 256, 3 * n)
+                      .astype(np.uint8).tobytes()))
+        if trns:
+            extra.append((b"tRNS", bytes(range(min(n, 5)))))
+    elif trns:
+        extra.append((b"tRNS", b"\x00\x01" * SAMPLES[color]))
+    path = str(tmp_path / "x.png")
+    encode_png(path, values, depth, color, interlace, rng, extra)
+    want = np.asarray(Image.open(path))
+    got = png.read_png(path)
+    assert got.dtype == want.dtype and got.shape == want.shape, (
+        got.dtype, got.shape, want.dtype, want.shape)
+    np.testing.assert_array_equal(got, want)
+    assert png.png_header(path) == (h, w) + (
+        (1,) if want.ndim == 2 else want.shape[2:])
 
 
 def test_make_synth_dataset_matches_jax(tmp_path):

@@ -1,8 +1,9 @@
 """The PyTorch port, chip_smoke.py and bench_torch.py must run where the JAX
-stack is absent: with jax, flax, optax, msgpack, PIL, OpenCV, pandas, ninja,
-torchvision and the JAX package blocked, every module of the port and both
-scripts import, the checkpoint reader decodes a checked-in flax checkpoint,
-and the synthetic dataset writer and the PNG codec run."""
+stack is absent: with jax, flax, optax, msgpack, PIL, OpenCV, pandas,
+matplotlib, ninja, torchvision and the JAX package blocked, every module of
+the port and both scripts import, the checkpoint reader decodes a
+checked-in flax checkpoint, and the synthetic dataset writer, the PNG codec
+and a PR-curve figure run."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "mpp_cnn_rs_object_detection_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "cv2",
-           "pandas", "ninja", "torchvision",
+           "pandas", "matplotlib", "ninja", "torchvision",
            "mpp_cnn_rs_object_detection_tpu")
 CKPT = os.path.join(ROOT, "artifacts", "models_storage", "posnet",
                     "pos_r2cp_tta", "model.msgpack")
@@ -40,6 +41,9 @@ with tempfile.TemporaryDirectory() as tmp:
     assert img.shape == (32, 40, 3), img.shape
     png.write_png(os.path.join(tmp, "copy.png"), img)
     assert (png.read_png(os.path.join(tmp, "copy.png")) == img).all()
+    from {PORT}.metrics.dota_eval import pr_curve_plot
+    pr_curve_plot([0.1, 0.5], [1.0, 0.6], os.path.join(tmp, "pr.png"))
+    assert png.png_header(os.path.join(tmp, "pr.png")) == (400, 800, 4)
 loaded = [n for n in sys.modules if n.split(".")[0] in {BLOCKED!r}
           and sys.modules[n] is not None]
 assert not loaded, loaded

@@ -14,6 +14,7 @@ from mpp_cnn_rs_object_detection_torch.metrics import dota_eval as teval
 from mpp_cnn_rs_object_detection_torch.metrics import dota_writer as twriter
 from mpp_cnn_rs_object_detection_torch.metrics import polyiou as tpoly
 from mpp_cnn_rs_object_detection_torch.ops.geometry import rect_to_poly_np
+from mpp_cnn_rs_object_detection_torch.utils.png import png_header
 from tests._dota_util import dota_snapshot
 
 # the modules (the JAX package's metrics/__init__ re-exports functions of
@@ -146,9 +147,14 @@ def test_eval_identical(tmp_path, monkeypatch, det_type):
     with open(dota / "metrics0.50.json") as f:
         assert f.read() == written_t
     _compare_results(rt, rj)
+    # the port's eval also writes the PR curves (JAX's, make_plots=False
+    # here, are held to them in tests/test_torch_figures.py)
+    curves = [f"prec_rec_curve_{t:.2f}.png" for t in teval.IOU_THRESHOLDS]
     assert sorted(os.listdir(dota)) == sorted(
-        ["det", "gt", "imageSet.txt"]
+        ["det", "gt", "imageSet.txt"] + curves
         + [f"metrics{t:.2f}.json" for t in teval.IOU_THRESHOLDS])
+    for name in curves:
+        assert png_header(str(dota / name)) == (400, 800, 4)
 
 
 def test_voc_ap_matches():

@@ -14,7 +14,9 @@ package and Philox in the other), the trained weights agree.
 The legacy manual mode (a copy of ``mpp_exact_smoke`` on the same maps)
 calibrates, builds ``hierarchical_fixed`` and runs infereval. Last, the
 options that raised ``NotImplementedError`` with their ``ROADMAP.md``
-item, accepted since their item was ported."""
+item, accepted since their item was ported. Both packages' training ends
+with the energy attribution figure: on the replayed trainings the port's
+attributions equal JAX's; and ``-p data_preview`` writes JAX's files."""
 
 import glob
 import json
@@ -24,14 +26,17 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from mpp_cnn_rs_object_detection_torch.__main__ import main as t_main
 from mpp_cnn_rs_object_detection_torch.data.synth import make_synth_dataset
 from mpp_cnn_rs_object_detection_torch.mpp import combinators as tcomb
 from mpp_cnn_rs_object_detection_torch.mpp import energy_setups as tes
 from mpp_cnn_rs_object_detection_torch.mpp import mpp_model as tmm
-from mpp_cnn_rs_object_detection_tpu.mpp import combinators as jcomb
 from mpp_cnn_rs_object_detection_torch.mpp import train_weights as ttw
+from mpp_cnn_rs_object_detection_torch.utils.png import png_header, read_png
+from mpp_cnn_rs_object_detection_tpu.mpp import combinators as jcomb
+from mpp_cnn_rs_object_detection_tpu.mpp import figures as jfig
 from mpp_cnn_rs_object_detection_tpu.mpp import mpp_model as jmm
 from mpp_cnn_rs_object_detection_tpu.mpp import train_weights as jtw
 from tests import _torch_workspace as tw
@@ -108,22 +113,36 @@ def trained(tmp_path_factory):
         tm = t_main(["-p", "infereval", "-m", "mpp", "-c", str(path)],
                     device="cpu")
     # the same perturbations in both trainers: functions of the GT
-    # configuration and the sample index
+    # configuration and the sample index; each trainer's attribution
+    # figure records what it draws
     replay = dict(cfg, model_name="mpp_replay")
     path = ws_t / "mpp_replay.json"
     path.write_text(json.dumps(replay))
+    drawn = {}
+
+    def capture(pkg, plot):
+        def wrapped(attr, vectors, names, out):
+            drawn[pkg] = (np.asarray(attr), np.asarray(vectors), list(names))
+            return plot(attr, vectors, names, out)
+        return wrapped
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtw, "sample_kernel_perturbed_batch",
                    lambda key, gt, kd, n_moves, n: _fake_pert_j(gt, n))
         mp.setattr(ttw, "sample_kernel_perturbed_batch",
                    lambda gen, gt, kd, n_moves, n: _fake_pert_t(gt, n))
+        mp.setattr(jfig, "attribution_summary_plot",
+                   capture("jax", jfig.attribution_summary_plot))
+        mp.setattr(tmm, "attribution_summary_plot",
+                   capture("torch", tmm.attribution_summary_plot))
         with tw.inside(ws_j):
             jmm.MPPModel(json.loads(json.dumps(replay)),
                          phase="train").train()
         with tw.inside(ws_t):
             t_main(["-p", "train", "-m", "mpp", "-c", str(path)],
                    device="cpu")
-    return dict(ws_j=ws_j, ws_t=ws_t, cfg=cfg, train=tm_train, port=tm)
+    return dict(ws_j=ws_j, ws_t=ws_t, cfg=cfg, train=tm_train, port=tm,
+                attribution=drawn)
 
 
 def _store(ws, name):
@@ -179,6 +198,43 @@ def test_training_matches_jax_on_the_same_perturbations(trained):
         np.testing.assert_allclose(got["params"][k], v, atol=REPLAY_ATOL,
                                    err_msg=k)
     assert max(abs(w - 1.0) for w in got["params"]["weights"]) > 1e-2
+
+
+def test_attribution_figure_matches_jax(trained):
+    """``-p train``'s last step on the replayed trainings (whose weights
+    agree to ``REPLAY_ATOL``): the same 8 crops' GT energy vectors and
+    term names, and the integrated-gradient attributions, within
+    ``REPLAY_ATOL``; ``figures/energy_attribution.png`` in both stores,
+    the port's at JAX's canvas."""
+    got, want = (trained["attribution"][k] for k in ("torch", "jax"))
+    assert got[2] == want[2] and len(got[2]) == 8
+    assert got[1].shape == want[1].shape and len(got[1]) > 0
+    np.testing.assert_allclose(got[1], want[1], atol=REPLAY_ATOL)
+    np.testing.assert_allclose(got[0], want[0], atol=REPLAY_ATOL)
+    t_png, j_png = (_store(trained[ws], "mpp_replay") / "figures"
+                    / "energy_attribution.png" for ws in ("ws_t", "ws_j"))
+    assert png_header(str(t_png))[:2] == np.asarray(
+        Image.open(j_png)).shape[:2]
+
+
+def test_data_preview_matches_jax(trained):
+    """``-p data_preview -m mpp``: the first train scenes written as the
+    JAX package writes them (``data_preview/preview_{name}_gt.png``),
+    pixel for pixel."""
+    cfg = trained["cfg"]
+    with tw.inside(trained["ws_j"]):
+        jmm.MPPModel(json.loads(json.dumps(cfg)), load=True).data_preview()
+    with tw.inside(trained["ws_t"]):
+        t_main(["-p", "data_preview", "-m", "mpp", "-c",
+                str(trained["ws_t"] / "mpp_trained.json")], device="cpu")
+    j_dir, t_dir = (_store(trained[ws], "mpp_trained") / "data_preview"
+                    for ws in ("ws_j", "ws_t"))
+    names = sorted(os.listdir(j_dir))
+    assert names == sorted(os.listdir(t_dir)) == [
+        f"preview_{i:04}_gt.png" for i in range(N_IMAGES)]
+    for name in names:
+        np.testing.assert_array_equal(read_png(str(t_dir / name)),
+                                      np.asarray(Image.open(j_dir / name)))
 
 
 def test_trained_ap_agrees_with_jax(trained):

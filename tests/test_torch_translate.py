@@ -18,14 +18,16 @@ package's DataFrame (its metadata then read "nan" and NaN), where pandas 2
 and the port keep None ("None" and null): that one difference is
 normalised below.
 
-COWC: the layout of ``tests/test_data_layer.py:256`` plus an RGBA scene.
+COWC: the layout of ``tests/test_data_layer.py:256`` plus an RGBA scene,
+and a tree of gray + alpha scenes (Pillow's premultiplied resize).
+
+The PNG reader: the formats it once refused, written by Pillow, read as
+Pillow reads them.
 """
 
 import json
 import os
 import pickle
-import struct
-import zlib
 
 import numpy as np
 import pandas as pd
@@ -39,6 +41,7 @@ from mpp_cnn_rs_object_detection_torch.utils.png import read_png
 from mpp_cnn_rs_object_detection_tpu.data import translate_cowc as jcowc
 from mpp_cnn_rs_object_detection_tpu.data import translate_dota as jdota
 from tests import _torch_workspace as tw
+from tests._torch_util import encode_png
 
 PANDAS_NAN_NONE = int(pd.__version__.split(".")[0]) >= 3
 
@@ -254,24 +257,41 @@ def test_label_columns_typed_as_pandas(tmp_path):
 
 
 @pytest.mark.parametrize("mode,named", [
-    ("P", "palette"), ("I;16", "bit depth 16"), ("interlaced", "interlaced")])
+    ("P", "palette"), ("I;16", "bit depth 16"), ("interlaced", "interlaced"),
+    ("1", "bit depth 1"), ("P;1", "palette at 1 bit"),
+    ("P;2", "palette at 2 bits"), ("P;4", "palette at 4 bits"),
+    ("LA", "gray + alpha"), ("RGBA", "RGBA"),
+    ("interlaced;16", "interlaced RGB at 16 bits")])
 def test_png_formats_refused(tmp_path, mode, named):
-    """The reader refuses palette, 16-bit and interlaced PNGs, naming the
-    format (Pillow writes no interlaced PNG: that header is made here)."""
+    """The formats the reader once refused, as Pillow writes them (the
+    interlaced ones encoded here: Pillow writes no Adam7 file): ``read_png``
+    equals ``np.asarray(Image.open(path))`` (dtype, shape, exact values),
+    and so does the translators' float view of it."""
     path = str(tmp_path / "x.png")
-    pixels = np.arange(48).reshape(6, 8)
-    if mode == "interlaced":
-        with open(path, "wb") as f:
-            f.write(png._SIGNATURE + png._chunk(
-                b"IHDR", struct.pack(">IIBBBBB", 8, 6, 8, 2, 0, 0, 1))
-                + png._chunk(b"IDAT", zlib.compress(bytes(6 * 25)))
-                + png._chunk(b"IEND", b""))
+    rng = np.random.default_rng(len(mode))
+    if mode.startswith("interlaced"):
+        depth = 16 if mode.endswith("16") else 8
+        encode_png(path, rng.integers(0, 1 << depth, (6, 8, 3)), depth, 2,
+                      1, rng)
+    elif mode.startswith("P"):
+        bits = int(mode[2:]) if ";" in mode else 8
+        pixels = rng.integers(0, 1 << bits, (6, 8)).astype(np.uint8)
+        img = Image.fromarray(pixels, "L").convert("P")
+        img.putpalette(list(rng.integers(0, 256, 3 * 256)))
+        img.save(path, bits=bits)
     else:
-        img = Image.fromarray(pixels.astype(np.uint16 if mode == "I;16"
-                                            else np.uint8))
-        (img.convert("P") if mode == "P" else img).save(path)
-    with pytest.raises(ValueError, match=named):
-        read_png(path)
+        shape = {"LA": (6, 8, 2), "RGBA": (6, 8, 4)}.get(mode, (6, 8))
+        dtype = np.uint16 if mode == "I;16" else np.uint8
+        pixels = rng.integers(0, 1 << (8 * dtype().itemsize), shape)
+        img = Image.fromarray(pixels.astype(dtype))
+        (img.convert("1") if mode == "1" else img).save(path)
+    want = np.asarray(Image.open(path))
+    got = read_png(path)
+    assert got.dtype == want.dtype and got.shape == want.shape, named
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.astype(np.float32)[..., :3],
+                                  np.asarray(Image.open(path),
+                                             dtype=np.float32)[..., :3])
 
 
 def _raw_cowc(root, seed=3):
@@ -328,6 +348,55 @@ def test_translate_cowc_matches_jax(tmp_path):
             img_j = np.asarray(Image.open(j / "images" / f"{stem}.png"))
             img_t = read_png(str(t / "images" / f"{stem}.png"))
             assert img_t.shape == (18, 24, 3)
+            np.testing.assert_array_equal(img_t, img_j)
+
+
+def test_translate_cowc_gray_alpha_matches_jax(tmp_path):
+    """A raw COWC tree of gray + alpha scenes (alpha 0, 255 and in between,
+    so Pillow's premultiplied resize rounds every way; one scene's
+    annotation gray + alpha too): both packages' translations equal, the
+    images kept as 2-channel PNGs, pixel for pixel."""
+    raw = tmp_path / "cowc_raw" / "Potsdam"
+    raw.mkdir(parents=True)
+    rng = np.random.default_rng(11)
+    for i in range(3):
+        img = rng.integers(0, 256, (61, 79, 2)).astype(np.uint8)
+        img[..., 1] = rng.choice([0, 255, 3, 128, 200], (61, 79))
+        ann = np.zeros((61, 79, 2 if i == 0 else 3), np.uint8)
+        for r, c in [(11, 13), (33, 47), (52, 70)]:
+            ann[r, c] = 255
+        Image.fromarray(img).save(raw / f"g{i}.png")
+        Image.fromarray(ann).save(raw / f"g{i}_Annotated_Cars.png")
+    cfg = {"name": "COWC_la", "cowc_base_path": [str(raw.parent)],
+           "target_gsd": 0.5, "val_fraction": 0.34, "seed": 1}
+    ws_j = tw.workspace(tmp_path / "jax")
+    ws_t = tw.workspace(tmp_path / "torch")
+    path = ws_t / "cowc.json"
+    path.write_text(json.dumps(cfg))
+    with tw.inside(ws_j):
+        jcowc.translate_cowc(dict(cfg))
+    with tw.inside(ws_t):
+        counts = t_main(["-p", "translate_cowc", "-c", str(path)],
+                        device="cpu")
+    assert counts == {"val": 1, "train": 2}
+    for ss in ("train", "val"):
+        j = ws_j / "data" / "COWC_la" / ss
+        t = ws_t / "data" / "COWC_la" / ss
+        files = sorted(os.listdir(j / "annotations"))
+        assert files == sorted(os.listdir(t / "annotations"))
+        for fname in files:
+            with open(j / "annotations" / fname, "rb") as f:
+                want = pickle.load(f)
+            with open(t / "annotations" / fname, "rb") as f:
+                got = pickle.load(f)
+            _assert_same_pickle(got, want, f"{ss}/{fname}")
+            stem = fname[:-4]
+            assert (json.loads((t / "metadata" / f"{stem}.json").read_text())
+                    == json.loads((j / "metadata" / f"{stem}.json")
+                                  .read_text()))
+            img_j = np.asarray(Image.open(j / "images" / f"{stem}.png"))
+            img_t = read_png(str(t / "images" / f"{stem}.png"))
+            assert img_t.shape == (18, 23, 2)
             np.testing.assert_array_equal(img_t, img_j)
 
 
